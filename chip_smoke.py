@@ -11,10 +11,15 @@ Phases, in order; any failed check exits non-zero before the result lines:
 1. card  — the card's name and power limit (nvidia-smi) and PyTorch's name;
 2. build — compile the port's CUDA kernels from ``kpw_tpu_torch/csrc``;
 3. kernels — every kernel against its plain PyTorch version on the card,
-   element for element, then each timed at the flagship shape with CUDA
-   events (median of 25 runs, L2 flushed before each) beside its plain
-   version, the PyTorch library call that computes the same function, and
-   its memory bound;
+   element for element (the fused pack on unaligned, ragged, past-the-end
+   windows at every width; the hist + dictionary kernel on columns with
+   few distinct values, ragged counts and dictionaries narrower and wider
+   than its table), then each timed at the flagship shape with CUDA events
+   (median of 25 runs, L2 flushed before each) beside its plain version,
+   the PyTorch library call that computes the same function, and its
+   memory bound, the hist kernel on both bounded distributions; the
+   unfused routes (tensor ops around a kernel) against the fused kernels,
+   in turns;
 4. flagship — ``entry()`` and ``encode_step_single`` at 64 x 65,536 on the
    sort route and both bounded routes, each run once and equal to the same
    step run on the CPU (plain versions);
@@ -22,13 +27,16 @@ Phases, in order; any failed check exits non-zero before the result lines:
    groups, through ``ParquetFileWriter`` + ``CudaChunkEncoder``, row group
    by row group and through the writer's pipeline; both files must equal,
    byte for byte, the one the port's ``CpuChunkEncoder`` writes;
-6. timing — each flagship route's step time and device profile, the
-   dictionary build's two routes on one row group's columns, and one
-   writer row group's stage spans and device profile.
+6. timing — each flagship route's step time and device profile (device
+   ops per step), the dictionary build's two routes on one row group's
+   columns, one row group's pack jobs through the fused kernel and the
+   unfused route in turns, and one writer row group's stage spans and device
+   profile.
 
 Phases 4 and 5 are the main paths: every launch count is set to 0 just
 before each and read just after, and a kernel of the path that never
-launched fails the run; the ``launches`` reported are their sum.  The line
+launched fails the run; the ``launches`` reported are their sum.  The
+writer must make exactly one pack launch a job and no padded index copy.  The line
 before the last is one JSON object with a record per kernel; the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -137,102 +145,211 @@ def phase_build() -> None:
         say(f"[build] {name}: " + "; ".join(usage))
 
 
-def phase_kernels(torch, timer: Timer) -> dict:
-    """Exact agreement of every kernel with its plain version, then timing
-    at the flagship shape.  Returns the per-kernel records (launches are
-    filled in after the main path ran)."""
-    from kpw_tpu_torch.ops import bitpack, rank
+def runs_of(rng, n: int, shortest: int, longest: int, vmax: int) -> np.ndarray:
+    """n uint32 values below vmax made of runs of shortest..longest equal
+    values."""
+    out = np.empty(n, np.uint32)
+    pos = 0
+    while pos < n:
+        k = int(rng.integers(shortest, longest + 1))
+        out[pos:pos + k] = rng.integers(0, vmax, dtype=np.uint64)
+        pos += k
+    return out
 
-    rng = np.random.default_rng(1234)
-    dev = "cuda"
-    err = {"bitpack": 0, "hist": 0, "rank": 0}
 
-    # bit-pack: every width, power-of-two and ragged buckets, top bit set
+def check_pack(torch, rng) -> int:
+    """The fused pack kernel against its plain version, exactly: windows of
+    16,384 values (four of the kernel's spans) that start unaligned, run
+    past ld, hold counts of 0, 1, 7, 9 and other ragged ones; runs of 1..40
+    and of 8..40 equal values across the span edges; widths 1..32 with bits
+    above the width set; then the identity table (``bitpack_pages``) at
+    buckets 256, 65,536 and 12,288.  Returns the largest error (0)."""
+    from kpw_tpu_torch.ops import bitpack
+
+    C, ld, bucket = 4, 70_003, 16_384
+    table = torch.tensor([
+        [0, 0, 16_384], [1, 1, 16_383], [2, 3, 0], [3, 5, 1], [1, 4090, 7],
+        [2, 9, 9], [3, 37, 12_345], [1, 60_001, 16_384], [0, 70_003, 100],
+        [2, 4093, 16_000], [1, 17, 4104], [3, 65_535, 4100], [2, 8191, 8193]],
+        dtype=torch.int32, device="cuda")
+    worst = 0
+    for width in range(1, 33):
+        top = np.uint64(1 << 32) if width == 32 else np.uint64(1 << width)
+        vals = np.stack([
+            rng.integers(0, 1 << 32, ld, dtype=np.uint64).astype(np.uint32),
+            runs_of(rng, ld, 1, 40, int(top)),
+            runs_of(rng, ld, 8, 40, int(top)),
+            rng.integers(0, top, ld, dtype=np.uint64).astype(np.uint32)])
+        idx = torch.from_numpy(vals.view(np.int32)).to("cuda")
+        for tab, cnt in ((table, None), (None, 12_345)):
+            got_p, got_l = bitpack.pack_pages(idx, tab, bucket, width, True, cnt)
+            want_p, want_l = bitpack.pack_pages_plain(idx, tab, bucket, width, True, cnt)
+            e = max(max_abs_err(torch, got_p, want_p),
+                    max_abs_err(torch, got_l, want_l))
+            check(e == 0, f"fused pack width {width} count {cnt}: max err {e}")
+            worst = max(worst, e)
     cases = 0
     for bucket in (256, 65536, 12288):
         for width in range(1, 33):
             vals = rng.integers(0, 1 << width, (3, bucket), dtype=np.uint64)
             if width == 32:
                 vals[:, ::3] |= np.uint64(0x8000_0000)
-            pages = torch.from_numpy(vals.astype(np.uint32).view(np.int32)).to(dev)
-            got = bitpack.bitpack_pages(pages, width)
-            want = bitpack.bitpack_pages_plain(pages, width)
-            e = max_abs_err(torch, got, want)
+            pages = torch.from_numpy(vals.astype(np.uint32).view(np.int32)).to("cuda")
+            e = max_abs_err(torch, bitpack.bitpack_pages(pages, width),
+                            bitpack.bitpack_pages_plain(pages, width))
             check(e == 0, f"bitpack width {width} bucket {bucket}: max err {e}")
-            err["bitpack"] = max(err["bitpack"], e)
             cases += 1
     torch.cuda.synchronize()
-    say(f"[kernels] bitpack == plain on {cases} (width, bucket) cases, "
-        "widths 1..32, buckets 256/65536/12288")
+    say(f"[kernels] fused pack == plain (packed bytes and long_sum) on 32 "
+        f"widths x {table.shape[0]} windows (unaligned starts, counts 0/1/7/9/"
+        f"ragged, past ld, runs across span edges) plus the table-less rows "
+        f"with one count, and the identity table on {cases} (width, bucket) "
+        "cases")
+    return worst
 
-    # hist and rank: every nhi bucket, sentinel rows, ragged count, and
-    # values above the bound that must count nowhere
-    for nhi in (8, 32, 128):
-        vb = nhi * 64
-        C, N, count = 5, 32768 + 128 * 3, 32768 + 77  # several tiles a column
-        vals = rng.integers(0, vb, (C, N)).astype(np.int64)
-        vals[:, count:] = vb
-        vals[:, 5] = vb + 12345
-        vals[:, 6] = 0xFFFFFFFF
-        lo = torch.from_numpy(vals.astype(np.uint32).view(np.int32)).to(dev)
-        got_h = rank.hist_pages(lo, nhi)
-        want_h = rank.hist_pages_plain(lo, nhi)
-        e = max_abs_err(torch, got_h, want_h)
-        check(e == 0, f"hist nhi {nhi}: max err {e}")
-        err["hist"] = max(err["hist"], e)
-        rt, _, _ = rank.presence_to_dict(want_h, nhi)
-        got_r = rank.rank_pages(lo, rt)
-        want_r = rank.rank_pages_plain(lo, rt)
-        e = max_abs_err(torch, got_r, want_r)
-        check(e == 0, f"rank nhi {nhi}: max err {e}")
-        err["rank"] = max(err["rank"], e)
+
+def hist_inputs(rng, C: int, N: int, nhi: int) -> np.ndarray:
+    """(C, N) uint32 below nhi*64: column 0 uniform, column c >= 1 with
+    (c % 8) + 1 distinct values; two rows at or above the bound."""
+    vb = nhi * 64
+    vals = rng.integers(0, vb, (C, N)).astype(np.uint32)
+    for c in range(1, C):
+        few = rng.choice(vb, size=c % 8 + 1, replace=False)
+        vals[c] = rng.choice(few, N)
+    vals[:, 5] = vb + 12345
+    vals[:, 6] = 0xFFFFFFFF
+    return vals
+
+
+def check_hist(torch, rng) -> int:
+    """The hist + dictionary kernel against its plain version, exactly:
+    C = 5 and 64, nhi 8 / 32 / 128, columns with 1..8 distinct values, a
+    count below N (an int, and a device tensor), values at or above the
+    bound, ulo as wide as the table, wider (padded to its end) and
+    narrower.  Returns the largest error (0)."""
+    from kpw_tpu_torch.ops import rank
+
+    worst = 0
+    N = 32768 + 384
+    for C in (5, 64):
+        for nhi in (8, 32, 128):
+            lo = torch.from_numpy(hist_inputs(rng, C, N, nhi).view(np.int32)).to("cuda")
+            count = N - 77
+            for cnt, cols in ((count, None), (torch.tensor(count, device="cuda"), N),
+                              (N, 200)):
+                got = rank.hist_dict(lo, cnt, nhi, ulo_cols=cols)
+                want = rank.hist_dict_plain(lo, cnt, nhi, ulo_cols=cols)
+                e = max(max_abs_err(torch, g, w) for g, w in zip(got, want))
+                check(e == 0, f"hist_dict C {C} nhi {nhi} ulo_cols {cols}: max err {e}")
+                worst = max(worst, e)
+            e = max_abs_err(torch, rank.hist_pages(lo, nhi),
+                            rank.hist_pages_plain(lo, nhi))
+            check(e == 0, f"hist_pages C {C} nhi {nhi}: max err {e}")
     torch.cuda.synchronize()
-    say("[kernels] hist == plain and rank == plain for nhi 8/32/128 "
-        "(sentinel rows, ragged count, out-of-bound values)")
+    say("[kernels] hist_dict == plain (counts, rt, ulo, k) for C 5/64, nhi "
+        "8/32/128, 1..8 distinct values, ragged int and device counts, "
+        "out-of-bound values, ulo 200 / nhi*64 / N wide")
+    return worst
 
-    # timing at the flagship shape: bit-pack at width 16, hist/rank at the
-    # 2^13 bound (nhi 128), inputs as the main path hands them over
-    C, N, W, NHI = C_FLAG, N_FLAG, 16, 128
+
+def check_rank(torch, rng) -> int:
+    from kpw_tpu_torch.ops import rank
+
+    worst = 0
+    for nhi in (8, 32, 128):
+        vals = hist_inputs(rng, 5, 32768 + 384, nhi)
+        lo = torch.from_numpy(vals.view(np.int32)).to("cuda")
+        _, rt, _, _ = rank.hist_dict_plain(lo, 32768 + 77, nhi)
+        e = max_abs_err(torch, rank.rank_pages(lo, rt), rank.rank_pages_plain(lo, rt))
+        check(e == 0, f"rank nhi {nhi}: max err {e}")
+        worst = max(worst, e)
+    torch.cuda.synchronize()
+    say("[kernels] rank == plain for nhi 8/32/128 (rows past the count, "
+        "out-of-bound values)")
+    return worst
+
+
+def abba(timer: Timer, a, b) -> tuple[float, float, list]:
+    """Time a and b in turns (a b b a); returns their means and all four."""
+    t = [timer.ms(a), timer.ms(b), timer.ms(b), timer.ms(a)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+
+def phase_kernels(torch, timer: Timer) -> dict:
+    """Exact agreement of every kernel with its plain version, then timing
+    at the flagship shape as the main path hands each kernel its inputs,
+    beside the unfused route around it, timed in turns.  Returns the
+    per-kernel records (launches are filled in after the main path ran)."""
+    from kpw_tpu_torch.ops import bitpack, rank
+    from kpw_tpu_torch.parallel import sharded
+
+    rng = np.random.default_rng(1234)
+    dev = "cuda"
+    err = {"bitpack": check_pack(torch, rng), "hist": check_hist(torch, rng),
+           "rank": check_rank(torch, rng)}
+
+    # the flagship shape and count of the main path (flagship_path)
+    C, N, W = C_FLAG, N_FLAG, 16
+    count = N - 37
+    valid = torch.arange(N, device=dev) < count
+    ranks = torch.from_numpy(rng.integers(0, 1 << W, (C, N)).astype(np.int32)).to(dev)
+    los = {}
+    for label, nhi, vmax in (("bounded-270", 8, 270), ("bounded-8192", 128, 1 << 13)):
+        los[label] = (torch.from_numpy(
+            rng.integers(0, vmax, (C, N)).astype(np.int32)).to(dev), nhi)
+    lo, NHI = los["bounded-8192"]
     vb = NHI * 64
-    idx = torch.from_numpy(
-        rng.integers(0, 1 << W, (C, N)).astype(np.int32)).to(dev)
-    vals = rng.integers(0, vb, (C, N)).astype(np.int32)
-    vals[:, N - 1000:] = vb  # ragged tail: sentinel rows
-    lo = torch.from_numpy(vals).to(dev)
-    counts = rank.hist_pages_plain(lo, NHI)
-    rt, _, _ = rank.presence_to_dict(counts, NHI)
-    # the library calls' inputs: flat int64 indices, the sentinel routed
-    # to a dropped extra bin / a zero table entry
-    flat = (lo.to(torch.int64)
+    _, rt, _, _ = rank.hist_dict_plain(lo, count, NHI)
+    lo_m = torch.where(valid, lo, vb)
+    flat = (lo_m.to(torch.int64)
             + torch.arange(C, device=dev)[:, None] * (vb + 1)).reshape(-1)
     rt_pad = torch.cat([rt.reshape(C, vb), rt.new_zeros((C, 1))], 1).reshape(-1)
 
     for name, got, want in (
-            ("bitpack", bitpack.bitpack_pages(idx, W), bitpack.bitpack_pages_plain(idx, W)),
-            ("hist", rank.hist_pages(lo, NHI), rank.hist_pages_plain(lo, NHI)),
+            ("bitpack", bitpack.pack_pages(ranks, None, N, W, False, count)[0],
+             bitpack.pack_pages_plain(ranks, None, N, W, False, count)[0]),
             ("rank", rank.rank_pages(lo, rt), rank.rank_pages_plain(lo, rt))):
         e = max_abs_err(torch, got, want)
         check(e == 0, f"{name} at the flagship shape: max err {e}")
         err[name] = max(err[name], e)
+    got = rank.hist_dict(lo, count, NHI, ulo_cols=N)
+    want = rank.hist_dict_plain(lo, count, NHI, ulo_cols=N)
+    e = max(max_abs_err(torch, g, w) for g, w in zip(got, want))
+    check(e == 0, f"hist_dict at the flagship shape: max err {e}")
+    err["hist"] = max(err["hist"], e)
+
+    # the hist kernel on both bounded distributions of the main path
+    for label, (lo_d, nhi) in los.items():
+        check(all(torch.equal(a, b) for a, b in zip(
+            rank.hist_dict(lo_d, count, nhi, ulo_cols=N),
+            rank.hist_dict_plain(lo_d, count, nhi, ulo_cols=N))),
+            f"hist_dict {label} differs from its plain version")
+        say(f"[kernels] hist_dict {label} ({C}, {N}) nhi {nhi}, ulo ({C}, {N}): "
+            + format(timer.ms(lambda: rank.hist_dict(lo_d, count, nhi, ulo_cols=N)),
+                     ".4f") + " ms")
 
     recs = {
         "bitpack": dict(
             name="bitpack", route="cuda", source="kpw_tpu_torch/csrc/bitpack.cu",
             replaces="kpw_tpu/ops/pallas_bitpack.py:52",
-            ms=timer.ms(lambda: bitpack.bitpack_pages(idx, W)),
-            plain_ms=timer.ms(lambda: bitpack.bitpack_pages_plain(idx, W)),
+            ms=timer.ms(lambda: bitpack.pack_pages(ranks, None, N, W, False, count)),
+            plain_ms=timer.ms(lambda: bitpack.pack_pages_plain(
+                ranks, None, N, W, False, count)),
             library_ms=None,
-            bytes=C * N * 4 + C * N * W // 8,
-            shape=f"({C}, {N}) int32 -> ({C}, {N * W // 8}) uint8, width {W}"),
+            bytes=C * count * 4 + C * N * W // 8,
+            shape=f"({C}, {N}) int32 windows, count {count} -> "
+                  f"({C}, {N * W // 8}) uint8, width {W}"),
         "hist": dict(
             name="hist", route="cuda", source="kpw_tpu_torch/csrc/hist.cu",
             replaces="kpw_tpu/ops/pallas_rank.py:105",
-            ms=timer.ms(lambda: rank.hist_pages(lo, NHI)),
-            plain_ms=timer.ms(lambda: rank.hist_pages_plain(lo, NHI)),
+            ms=timer.ms(lambda: rank.hist_dict(lo, count, NHI, ulo_cols=N)),
+            plain_ms=timer.ms(lambda: rank.hist_dict_plain(lo, count, NHI,
+                                                           ulo_cols=N)),
             library_ms=timer.ms(
                 lambda: torch.bincount(flat, minlength=C * (vb + 1))),
-            bytes=C * N * 4 + C * vb * 4,
-            shape=f"({C}, {N}) int32 -> ({C}, {NHI}, 64) int32"),
+            bytes=C * count * 4 + 2 * C * vb * 4 + C * N * 8 + C * 4,
+            shape=f"({C}, {N}) int32, count {count} -> counts, rt ({C}, {NHI}, 64) "
+                  f"int32, ulo ({C}, {N}) int64, k ({C},)"),
         "rank": dict(
             name="rank", route="cuda", source="kpw_tpu_torch/csrc/rank.cu",
             replaces="kpw_tpu/ops/pallas_rank.py:61",
@@ -250,7 +367,46 @@ def phase_kernels(torch, timer: Timer) -> dict:
                else f"{r['library_ms']:.4f} ms")
         say(f"[kernels] {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {lib}, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bytes']} bytes)")
+            f"{r['bound_ms']:.4f} ms ({r['bytes']} bytes), "
+            f"{r['ms'] / r['bound_ms']:.2f}x the bound")
+
+    # yardstick: one PyTorch copy of the (C, N) int32 ranks, to read the
+    # kernels' distance from the bound against what a plain memory-bound
+    # launch of this size reaches here
+    dst = torch.empty_like(ranks)
+    copy_ms = timer.ms(lambda: dst.copy_(ranks))
+    copy_bound = 2 * C * N * 4 / HBM_BYTES_PER_S * 1e3
+    say(f"[kernels] yardstick: torch copy_ of ({C}, {N}) int32 {copy_ms:.4f} ms, "
+        f"bound {copy_bound:.4f} ms, {copy_ms / copy_bound:.2f}x the bound")
+
+    # the unfused routes around the two redesigned kernels, in turns
+    def unfused_pack():
+        return bitpack.bitpack_pages(torch.where(valid, ranks, 0), W)
+
+    def new_pack():
+        return sharded._pack_rows(ranks, count, W)
+
+    check(torch.equal(unfused_pack(), new_pack()), "flagship pack routes differ")
+    old, new, t = abba(timer, unfused_pack, new_pack)
+    say(f"[routes] flagship pack ({C}, {N}) width {W}: unfused route (where mask + "
+        f"bit-pack) {old:.4f} ms, fused {new:.4f} ms; "
+        f"turns {', '.join(f'{x:.4f}' for x in t)}")
+
+    def unfused_hist():
+        counts = rank.hist_pages(torch.where(valid, lo, vb), NHI)
+        rt_o, ulo_v, k_o = rank.presence_to_dict(counts, NHI)
+        pad = ulo_v.new_full((C, N - vb), rank.U32_PAD)
+        return counts, rt_o, torch.cat([ulo_v, pad], dim=1), k_o
+
+    def new_hist():
+        return rank.hist_dict(lo, count, NHI, ulo_cols=N)
+
+    check(all(torch.equal(a, b) for a, b in zip(unfused_hist(), new_hist())),
+          "flagship hist routes differ")
+    old, new, t = abba(timer, unfused_hist, new_hist)
+    say(f"[routes] flagship hist + dictionary ({C}, {N}) nhi {NHI}: unfused route "
+        f"(where mask + hist + presence_to_dict + pad) {old:.4f} ms, fused "
+        f"{new:.4f} ms; turns {', '.join(f'{x:.4f}' for x in t)}")
     return recs
 
 
@@ -263,15 +419,8 @@ def flagship_path(torch) -> list:
     from kpw_tpu_torch.parallel.sharded import encode_step_single
 
     def same(got, want, what):
-        gp, gu, gk = got
-        wp, wu, wk = want
-        wk_h = wk.cpu().numpy()
-        check(np.array_equal(gk.cpu().numpy(), wk_h), f"{what}: k differs")
-        check(torch.equal(gp.cpu(), wp.cpu()), f"{what}: packed differs")
-        gu_h, wu_h = gu.cpu().numpy(), wu.cpu().numpy()
-        for c in range(len(wk_h)):
-            check(np.array_equal(gu_h[c, :wk_h[c]], wu_h[c, :wk_h[c]]),
-                  f"{what}: ulo[:k] differs in column {c}")
+        for name, g, w in zip(("packed", "ulo", "k"), got, want):
+            check(torch.equal(g.cpu(), w.cpu()), f"{what}: {name} differs")
 
     fn, (lo, count) = entry()
     check(lo.is_cuda, "entry() did not place its input on the card")
@@ -360,7 +509,19 @@ def writer_path(torch, groups, schema, props) -> None:
     port's ``CpuChunkEncoder`` writes."""
     from kpw_tpu_torch.core import ParquetFileWriter, columns_from_arrays
     from kpw_tpu_torch.core.pages import CpuChunkEncoder
+    from kpw_tpu_torch.ops import backend, packing
     from kpw_tpu_torch.ops.backend import CudaChunkEncoder
+
+    calls = {"jobs": 0, "pad_rows": 0}
+    multi, pad_rows = backend.pack_pages_multi, packing._pad_rows
+
+    def counted_multi(*args):
+        calls["jobs"] += 1
+        return multi(*args)
+
+    def counted_pad_rows(*args):
+        calls["pad_rows"] += 1
+        return pad_rows(*args)
 
     def write(encoder, pipeline: bool = False):
         buf = io.BytesIO()
@@ -381,9 +542,13 @@ def writer_path(torch, groups, schema, props) -> None:
         return buf.getvalue(), time.perf_counter() - t0, w.stage_busy_s
 
     rows = TAXI_ROWS * TAXI_GROUPS
-    got, t_cuda, _ = write(CudaChunkEncoder(props.encoder_options()))
-    piped, t_pipe, busy = write(CudaChunkEncoder(props.encoder_options()),
-                                pipeline=True)
+    backend.pack_pages_multi, packing._pad_rows = counted_multi, counted_pad_rows
+    try:
+        got, t_cuda, _ = write(CudaChunkEncoder(props.encoder_options()))
+        piped, t_pipe, busy = write(CudaChunkEncoder(props.encoder_options()),
+                                    pipeline=True)
+    finally:
+        backend.pack_pages_multi, packing._pad_rows = multi, pad_rows
     want, t_cpu, _ = write(CpuChunkEncoder(props.encoder_options()))
     check(got == want, f"writer: CudaChunkEncoder file ({len(got)} bytes) != "
           f"CpuChunkEncoder file ({len(want)} bytes)")
@@ -396,14 +561,18 @@ def writer_path(torch, groups, schema, props) -> None:
         f"({rows / t_pipe:.0f} rows/s; stage busy s "
         + ", ".join(f"{k} {v:.3f}" for k, v in busy.items())
         + f"), CpuChunkEncoder {t_cpu:.3f} s ({rows / t_cpu:.0f} rows/s)")
+    say(f"[writer] pack jobs {calls['jobs']}, padded index copies "
+        f"{calls['pad_rows']}")
+    return calls
 
 
 def device_profile(torch, fn) -> str:
     """Run ``fn`` once under the PyTorch profiler and describe where the
-    card's time went: the device's busy time (the union of the CUDA kernel
-    and copy intervals the profiler recorded, annotations excluded), its
-    share of the call's wall time (host clock, ending in a synchronize), and
-    the top device ops by summed time."""
+    card's time went: the device's busy time (the union of the CUDA kernel,
+    copy and memset intervals the profiler recorded, annotations excluded),
+    its share of the call's wall time (host clock, ending in a
+    synchronize), the number of those device ops, and the top device ops by
+    summed time."""
     from torch.autograd import DeviceType
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -431,7 +600,8 @@ def device_profile(torch, fn) -> str:
         by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     return (f"wall {wall * 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
-            f"({100 * busy_us / (wall * 1e6):.1f}%); top device ops: "
+            f"({100 * busy_us / (wall * 1e6):.1f}%), device ops {len(evs)}; "
+            "top device ops: "
             + "; ".join(f"{name[:44]} {t / 1e3:.3f} ms x{n}"
                         for name, (t, n) in top))
 
@@ -473,6 +643,75 @@ def dictionary_routes(torch, timer: Timer, arrays: dict) -> None:
         + ", ".join(f"{name} {ms:.4f} ms" for name, ms in times.items()))
 
 
+def unfused_pack_multi(torch, idx_all, col_ids, starts, counts, bucket: int,
+                   width: int):
+    """The unfused route of one pack job, kept here only to time it
+    against the fused kernel: a padded copy of the whole index batch, three index
+    uploads, the window gather and mask, the run statistics as a dozen
+    tensor ops, then the bit-pack of the sliced pages."""
+    from kpw_tpu_torch.ops import bitpack, packing
+
+    dev = idx_all.device
+    padded = packing._pad_rows(idx_all, bucket)
+    rows, first, cnt = (torch.as_tensor(np.asarray(x, np.int64), device=dev)
+                        for x in (col_ids, starts, counts))
+    pos = torch.arange(bucket, device=dev)
+    valid = pos < cnt[:, None]
+    v = torch.where(valid, padded[rows[:, None], first[:, None] + pos], 0)
+    return bitpack.bitpack_pages(v, width), bitpack.run_long_stats(v, valid)
+
+
+def taxi_pack_jobs(torch, timer: Timer, schema, props, arrays) -> None:
+    """One taxi row group's pack jobs, recorded as the encoder makes them,
+    then replayed on the card: the fused kernel (one launch a job) against
+    the unfused route, in turns, both equal; CUDA-event time of the four jobs
+    together and one profiled pass of each (device busy, device ops)."""
+    from kpw_tpu_torch.core import ParquetFileWriter, columns_from_arrays
+    from kpw_tpu_torch.ops import backend
+    from kpw_tpu_torch.ops.backend import CudaChunkEncoder
+
+    jobs = []
+    multi = backend.pack_pages_multi
+
+    def record(*args):
+        jobs.append(args)
+        return multi(*args)
+
+    backend.pack_pages_multi = record
+    try:
+        w = ParquetFileWriter(io.BytesIO(), schema, props,
+                              encoder=CudaChunkEncoder(props.encoder_options()))
+        w.write_batch(columns_from_arrays(schema, arrays))
+        w.flush_row_group()
+    finally:
+        backend.pack_pages_multi = multi
+    check(len(jobs) > 0, "taxi row group: no pack job recorded")
+
+    def fused():
+        return [multi(*job) for job in jobs]
+
+    def unfused():
+        return [unfused_pack_multi(torch, *job) for job in jobs]
+
+    for (fp, fl), (op, ol) in zip(fused(), unfused()):
+        check(torch.equal(fp, op) and torch.equal(fl, ol),
+              "taxi pack job: fused and unfused routes differ")
+    geometry = "; ".join(
+        f"{tuple(job[0].shape)} P {len(job[1])} bucket {job[4]} width {job[5]}"
+        for job in jobs)
+    # each page's valid values read once, its packed bytes and long_sum
+    # written once, its page-table row read once
+    nbytes = sum(int(np.sum(counts)) * 4 + len(cols) * (bucket * width // 8 + 4 + 12)
+                 for _, cols, _, counts, bucket, width in jobs)
+    old, new, t = abba(timer, unfused, fused)
+    say(f"[routes] taxi row group, {len(jobs)} pack jobs ({geometry}): unfused "
+        f"route {old:.4f} ms, fused {new:.4f} ms; turns "
+        f"{', '.join(f'{x:.4f}' for x in t)}; bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+        f"({nbytes} bytes)")
+    say(f"[routes] taxi pack jobs profiled: unfused route {device_profile(torch, unfused)}")
+    say(f"[routes] taxi pack jobs profiled: fused {device_profile(torch, fused)}")
+
+
 def writer_breakdown(torch, schema, props, arrays) -> None:
     """Where one CudaChunkEncoder row group's time goes: the encoder's stage
     spans (host clock) and the device profile."""
@@ -511,10 +750,10 @@ def main() -> None:
         import kpw_tpu_torch  # noqa: F401
     except ImportError as e:
         fail(f"cannot import kpw_tpu_torch from {root}: {e}")
-    from kpw_tpu_torch.ops.bitpack import bitpack_pages
-    from kpw_tpu_torch.ops.rank import hist_pages, rank_pages
+    from kpw_tpu_torch.ops.bitpack import pack_pages
+    from kpw_tpu_torch.ops.rank import hist_dict, rank_pages
 
-    counters = {"bitpack": bitpack_pages, "hist": hist_pages, "rank": rank_pages}
+    counters = {"bitpack": pack_pages, "hist": hist_dict, "rank": rank_pages}
 
     def drive(path: str, needs: tuple, fn, *args):
         """Run one main path with every launch count set to 0 just before it
@@ -537,14 +776,18 @@ def main() -> None:
 
     cases, flag = drive("flagship", ("bitpack", "hist", "rank"),
                         flagship_path, torch)
-    _, writ = drive("writer", ("bitpack",), writer_path,
-                    torch, groups, schema, props)
+    calls, writ = drive("writer", ("bitpack",), writer_path,
+                        torch, groups, schema, props)
+    check(writ["bitpack"] == calls["jobs"] and calls["pad_rows"] == 0,
+          f"writer: {writ['bitpack']} pack launches for {calls['jobs']} jobs, "
+          f"{calls['pad_rows']} padded index copies")
     launches = {k: flag[k] + writ[k] for k in counters}
     say(f"[main path] launches: {launches}")
 
     # timing and profiles after the counted runs, so they count no launch
     flagship_timing(torch, timer, cases)
     dictionary_routes(torch, timer, groups[0])
+    taxi_pack_jobs(torch, timer, schema, props, groups[0])
     writer_breakdown(torch, schema, props, groups[0])
 
     out = []

@@ -31,3 +31,14 @@ def cuda_launch_args(t: torch.Tensor) -> tuple[int, int]:
     device, on PyTorch's current stream there."""
     index = t.device.index if t.device.index is not None else torch.cuda.current_device()
     return index, torch.cuda.current_stream(t.device).cuda_stream
+
+
+def count_args(count, limit: int, device) -> tuple:
+    """A valid-row count for a kernel, which clamps it to [0, limit]:
+    (tensor to keep alive or None, device pointer or None, host value).  A
+    tensor stays on the device and travels by pointer (no host sync); an
+    int travels by value."""
+    if isinstance(count, torch.Tensor):
+        c = count.to(device=device, dtype=torch.int32).reshape(1)
+        return c, c.data_ptr(), 0
+    return None, None, max(0, min(int(count), limit))

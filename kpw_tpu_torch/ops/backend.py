@@ -11,9 +11,10 @@ does:
   (``ops.dictionary.build_dictionaries``);
 - sync 1: the unique counts, from which the dictionary-vs-plain decisions
   follow (fixed-width plain size is k * itemsize);
-- phase B: every data page's window slice, mask, long-run sum and bit-pack
-  (``ops.packing.pack_pages_multi``, the CUDA bit-pack kernel on a card)
-  launched for all columns before anything is read;
+- phase B: every data page's window slice, mask, long-run sum and bit-pack,
+  one fused launch per (batch, bucket, width) job
+  (``ops.packing.pack_pages_multi``, the CUDA kernel on a card), launched
+  for all columns before anything is read;
 - sync 2: one bulk readback of the packed pages, run statistics and
   dictionary keys;
 - sync 3 (rare): the pages whose long runs need the exact mixed RLE stream
@@ -53,22 +54,13 @@ def _to_host(tensors: list) -> list:
 
 
 class _DeviceIndices:
-    """Dictionary indices living on the device, sliceable per page
-    (``padded_for`` appends zeros so any (start, bucket) window is in
-    bounds)."""
+    """Dictionary indices living on the device; the fused pack reads any
+    (start, bucket) page window of them in place."""
 
     def __init__(self, dev: torch.Tensor, n: int):
         self.dev = dev  # (pad_bucket(n),) int32
         self.n = n
-        self._padded = {}  # bucket -> padded device array
         self._host = None  # lazy host copy for the mixed-RLE fallback
-
-    def padded_for(self, bucket: int) -> torch.Tensor:
-        arr = self._padded.get(bucket)
-        if arr is None:
-            arr = torch.cat([self.dev, self.dev.new_zeros(bucket)])
-            self._padded[bucket] = arr
-        return arr
 
     def host(self) -> np.ndarray:
         if self._host is None:
@@ -388,7 +380,7 @@ class CudaChunkEncoder(CpuChunkEncoder):
         if trivial is not None:
             return trivial
         bucket = pad_bucket(count)
-        packed, long_sum, _ = pack_page_host(
-            indices.padded_for(bucket), va, count, width, bucket)
+        packed, long_sum, _ = pack_page_host(indices.dev, va, count, width,
+                                             bucket)
         return _hybrid_body(packed, long_sum, count, width,
                             lambda: indices.host()[va:vb])

@@ -2,10 +2,11 @@
 
 The CPU oracle is ``core.encodings.bitpack`` (parquet LSB-first bit order):
 value bit j of value i lands at overall bit position ``i*width + j``.  The
-packing itself is the CUDA kernel behind :func:`ops.bitpack.bitpack_pages`;
-this module cuts the pages out of a (C, N) index batch, masks each past its
-count, and measures the long-run mass that decides RLE against bit-packing
-(``core.encodings.rle_hybrid_encode``).
+work itself — cutting each page out of a (C, N) index batch, zeroing it
+past its count, measuring the long-run mass that decides RLE against
+bit-packing (``core.encodings.rle_hybrid_encode``) and the bit-pack — is
+one launch of the fused kernel behind :func:`ops.bitpack.pack_pages`; this
+module builds its page table and serves the encoder's callers.
 
 Conventions of the port: 32-bit values travel as int32 bit patterns (the
 kernels read them as ``uint32_t``); where unsigned order or arithmetic
@@ -20,7 +21,7 @@ import math
 import numpy as np
 import torch
 
-from .bitpack import bitpack_pages
+from .bitpack import pack_pages
 
 
 def bits32(t: torch.Tensor) -> torch.Tensor:
@@ -33,104 +34,46 @@ def bits32(t: torch.Tensor) -> torch.Tensor:
     raise TypeError(f"expected 32-bit values as int32 or int64, got {t.dtype}")
 
 
-def as_index(x, device) -> torch.Tensor:
-    """A host list / array / tensor of row ids, starts or counts as an int64
-    tensor on ``device``."""
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.int64)
-    return torch.as_tensor(np.asarray(x, np.int64), device=device)
-
-
 def pad_bucket(n: int, minimum: int = 256) -> int:
     """Power-of-two padding bucket (multiple of 8) so pages of similar size
     share one launch."""
     return 1 << max(int(math.ceil(math.log2(max(n, 1)))), int(math.log2(minimum)))
 
 
-def _newrun(v: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """THE run-start mask along the last axis — where runs begin, shared by
-    every run statistic so run semantics match ``core.encodings._runs``."""
-    first = torch.ones_like(valid[..., :1])
-    return torch.cat([first, v[..., 1:] != v[..., :-1]], dim=-1) & valid
-
-
-def _window_slice(padded: torch.Tensor, rows, starts, counts, bucket: int):
-    """THE window slice/mask convention, batched over pages: page p is
-    ``padded[rows[p], starts[p] : starts[p] + bucket]`` zeroed past
-    ``counts[p]``.  Returns (v (P, bucket) int32, valid (P, bucket) bool)."""
-    pos = torch.arange(bucket, device=padded.device)
-    page = padded[rows[:, None], starts[:, None] + pos]
-    valid = pos < counts[:, None]
-    return torch.where(valid, page, 0), valid
-
-
-def _run_long_stats(v: torch.Tensor, valid: torch.Tensor):
-    """Run statistics along the last axis: (long_sum, n_runs, any_long),
-    ``long_sum`` being the total length of runs >= 8 — the RLE-vs-bitpack
-    decision mass of ``core.encodings.rle_hybrid_encode``.
-
-    A position is the >=8th element of its run iff no run starts at it or
-    in the 6 positions before it, and a run is long iff it has an
-    exactly-8th element (a >=8th element whose run starts exactly 7 back),
-    so ``long_sum = #(>=8th) + 7 * #(exactly 8th)`` — shifts of the
-    run-start mask, no scan."""
-    newrun = _newrun(v, valid)
-
-    def back(x, k):  # x[..., q - k], False at the window head
-        return torch.cat([torch.zeros_like(x[..., :k]), x[..., :-k]], dim=-1)
-
-    near_start = newrun
-    for k in range(1, 7):
-        near_start = near_start | back(newrun, k)
-    ge8 = valid & ~near_start
-    ex8 = ge8 & back(newrun, 7)
-    n_ex8 = ex8.sum(-1, dtype=torch.int32)
-    long_sum = ge8.sum(-1, dtype=torch.int32) + 7 * n_ex8
-    return long_sum, newrun.sum(-1, dtype=torch.int32), n_ex8 > 0
-
-
-def _pad_rows(idx_all: torch.Tensor, bucket: int) -> torch.Tensor:
-    """``idx_all`` (C, N) as int32 with ``bucket`` zero columns appended, so
-    every window starting inside a row stays in bounds."""
-    idx = bits32(idx_all)
-    return torch.cat([idx, idx.new_zeros((idx.shape[0], bucket))], dim=1)
-
-
-def _slice_mask_stats(idx_all, col_ids, starts, counts, bucket: int):
-    """Slice each page window, zero it past its count, and measure its
-    long-run mass.  Returns (v (P, bucket) int32, long_sum (P,) int32)."""
-    dev = idx_all.device
-    v, valid = _window_slice(_pad_rows(idx_all, bucket), as_index(col_ids, dev),
-                             as_index(starts, dev), as_index(counts, dev), bucket)
-    long_sum, _, _ = _run_long_stats(v, valid)
-    return v, long_sum
+def page_table(rows, starts, counts, device) -> torch.Tensor:
+    """The (P, 3) int32 page table (row, start, count) of host lists or
+    arrays, uploaded to ``device`` in one copy."""
+    table = np.stack([np.asarray(rows, np.int64), np.asarray(starts, np.int64),
+                      np.asarray(counts, np.int64)], axis=1).reshape(-1, 3)
+    if table.size and (table.min() < 0 or table.max() > np.iinfo(np.int32).max):
+        raise ValueError("page rows, starts and counts must be int32 and >= 0")
+    return torch.from_numpy(table.astype(np.int32)).to(device)
 
 
 def pack_pages_multi(idx_all: torch.Tensor, col_ids, starts, counts,
                      bucket: int, width: int):
     """Pack many pages — possibly from different columns of one (C, N)
-    index batch — in one bit-pack launch.  Page p is row ``col_ids[p]``,
+    index batch — in one fused launch.  Page p is row ``col_ids[p]``,
     values ``[starts[p], starts[p] + counts[p])``.
 
     Returns (packed (P, bucket*width//8) uint8, long_sum (P,) int32), where
     long_sum is the total length of runs >= 8 in each page (a page has a
     long run iff long_sum > 0)."""
-    v, long_sum = _slice_mask_stats(idx_all, col_ids, starts, counts, bucket)
-    return bitpack_pages(v, width), long_sum
+    table = page_table(col_ids, starts, counts, idx_all.device)
+    return pack_pages(bits32(idx_all), table, bucket, width)
 
 
 def pack_page(idx_full: torch.Tensor, start: int, count: int, bucket: int,
               width: int):
     """Encode one data page's dictionary indices.  ``idx_full`` is the whole
-    chunk's 1-D index array, padded so that the window ``[start,
-    start+bucket)`` is in bounds.  Returns (packed (bucket*width//8,) uint8,
-    long_sum, any_long) as tensors on ``idx_full``'s device."""
-    dev = idx_full.device
-    one = torch.zeros(1, dtype=torch.int64, device=dev)
-    v, valid = _window_slice(bits32(idx_full).reshape(1, -1), one,
-                             one + start, one + count, bucket)
-    long_sum, _, any_long = _run_long_stats(v, valid)
-    return bitpack_pages(v, width)[0], long_sum[0], any_long[0]
+    chunk's 1-D index array; the window ``[start, start+bucket)`` may run
+    past its end (those values read as 0).  Returns (packed
+    (bucket*width//8,) uint8, long_sum, any_long) as tensors on
+    ``idx_full``'s device."""
+    table = page_table([0], [start], [count], idx_full.device)
+    packed, long_sum = pack_pages(bits32(idx_full).reshape(1, -1), table,
+                                  bucket, width)
+    return packed[0], long_sum[0], long_sum[0] > 0
 
 
 def pack_page_host(idx_full: torch.Tensor, start: int, count: int, width: int,
@@ -141,6 +84,13 @@ def pack_page_host(idx_full: torch.Tensor, start: int, count: int, width: int,
     return packed.cpu().numpy(), int(long_sum), bool(any_long)
 
 
+def _pad_rows(idx_all: torch.Tensor, bucket: int) -> torch.Tensor:
+    """``idx_all`` (C, N) as int32 with ``bucket`` zero columns appended, so
+    every window starting inside a row stays in bounds."""
+    idx = bits32(idx_all)
+    return torch.cat([idx, idx.new_zeros((idx.shape[0], bucket))], dim=1)
+
+
 def gather_index_slices(idx_all: torch.Tensor, col_ids, starts,
                         bucket: int) -> torch.Tensor:
     """Index windows ``[start, start+bucket)`` for several (column, start)
@@ -148,5 +98,6 @@ def gather_index_slices(idx_all: torch.Tensor, col_ids, starts,
     the exact mixed RLE stream.  Returns (P, bucket) int32."""
     dev = idx_all.device
     pos = torch.arange(bucket, device=dev)
-    return _pad_rows(idx_all, bucket)[as_index(col_ids, dev)[:, None],
-                                      as_index(starts, dev)[:, None] + pos]
+    rows = torch.as_tensor(np.asarray(col_ids, np.int64), device=dev)
+    first = torch.as_tensor(np.asarray(starts, np.int64), device=dev)
+    return _pad_rows(idx_all, bucket)[rows[:, None], first[:, None] + pos]

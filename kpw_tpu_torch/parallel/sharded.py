@@ -10,25 +10,27 @@ versions run.
 Routes, chosen as the JAX package chooses them (without its TPU dispatch
 switch):
 
-- bounded (``value_bound <= 2^13`` and ``N % 128 == 0``): the histogram
-  kernel, :func:`ops.rank.presence_to_dict`, the rank kernel, then the
-  bit-pack kernel — no sort over N;
+- bounded (``value_bound <= 2^13`` and ``N % 128 == 0``): the histogram +
+  dictionary kernel, the rank kernel on the unmasked values, then the
+  fused pack kernel, which zeroes every row past ``count`` — no sort over
+  N and no masking op between the kernels;
 - otherwise the sort route: one stable sort per column builds the
-  dictionary, scatters put the ranks back in row order, then the bit-pack
-  kernel.
+  dictionary, scatters put the ranks back in row order, then the fused
+  pack kernel.
 
-Outputs are identical on both routes and to the JAX function: ``packed``
-(C, N*width/8) uint8, ``ulo`` (C, N) int64 holding 32-bit values with only
-``[:k]`` defined, and ``k`` (C,) int32.
+Outputs are identical on both routes and on either device, and equal to
+the JAX function's: ``packed`` (C, N*width/8) uint8, ``ulo`` (C, N) int64
+holding the 32-bit dictionary values in ``[:k]`` and the pad 0xFFFFFFFF
+after them, and ``k`` (C,) int32.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.bitpack import bitpack_pages
+from ..ops.bitpack import pack_pages
 from ..ops.packing import bits32
-from ..ops.rank import S_LO, U32_PAD, hist_pages, presence_to_dict, rank_pages
+from ..ops.rank import S_LO, U32_PAD, hist_dict, rank_pages
 
 # Static pack widths, as in the JAX package: the width is picked from a
 # host-known bound on the number of uniques (the row count N).
@@ -57,6 +59,13 @@ def _valid(n: int, count, device) -> torch.Tensor:
     return torch.arange(n, device=device) < count
 
 
+def _pack_rows(ranks: torch.Tensor, count, width: int) -> torch.Tensor:
+    """Bit-pack every column's first ``count`` rows of ``ranks`` (C, n),
+    zero past ``count``, in one fused launch with no page table."""
+    return pack_pages(ranks, None, ranks.shape[1], width, stats=False,
+                      count=count)[0]
+
+
 def encode_step_single(lo: torch.Tensor, count, width: int = 16,
                        value_bound: int | None = None):
     """Dictionary-encode and bit-pack a (C, N) batch of 32-bit keys on the
@@ -71,8 +80,9 @@ def encode_step_single(lo: torch.Tensor, count, width: int = 16,
     output, so callers derive it from a real scan.
 
     Returns (packed (C, N*width//8) uint8, ulo (C, N) int64, k (C,) int32):
-    ``ulo[c, :k[c]]`` is column c's ascending dictionary and ``packed[c]``
-    its rows' dictionary indices bit-packed, zero past ``count``."""
+    ``ulo[c, :k[c]]`` is column c's ascending dictionary, padded with
+    0xFFFFFFFF after it, and ``packed[c]`` its rows' dictionary indices
+    bit-packed, zero past ``count``."""
     if lo.dim() != 2:
         raise ValueError(f"lo must be (C, N), got {tuple(lo.shape)}")
     n = lo.shape[1]
@@ -90,23 +100,16 @@ def encode_step_single(lo: torch.Tensor, count, width: int = 16,
 
 def _encode_step_single_bounded(lo: torch.Tensor, count, width: int, nhi: int):
     """Sort-free route for values below ``nhi*64`` (the JAX package's
-    ``_encode_step_single_matmul``): histogram -> presence -> dictionary and
-    rank table -> per-row ranks -> bit-pack."""
+    ``_encode_step_single_matmul``): histogram + dictionary and rank table
+    in one launch, per-row ranks, then the fused pack.  Rows past ``count``
+    count nowhere in the histogram; their ranks are harmless and the pack
+    zeroes them."""
     n = lo.shape[1]
-    vb = nhi * S_LO
-    valid = _valid(n, count, lo.device)
-    lo_masked = torch.where(valid, bits32(lo), vb)
-    counts = hist_pages(lo_masked, nhi)
-    rt, ulo_v, k = presence_to_dict(counts, nhi)
-    ranks = rank_pages(lo_masked, rt)
-    masked = torch.where(valid, ranks, 0)
-    # contract shape (C, n): k <= min(count, vb) uniques always fit
-    if vb < n:
-        pad = ulo_v.new_full((ulo_v.shape[0], n - vb), U32_PAD)
-        ulo = torch.cat([ulo_v, pad], dim=1)
-    else:
-        ulo = ulo_v[:, :n]
-    return bitpack_pages(masked, width), ulo, k
+    v = bits32(lo)
+    # contract shape (C, n), padded in the same launch: k <= min(count,
+    # nhi*64) uniques always fit
+    _, rt, ulo, k = hist_dict(v, count, nhi, ulo_cols=n)
+    return _pack_rows(rank_pages(v, rt), count, width), ulo, k
 
 
 def _encode_step_single_impl(lo: torch.Tensor, count, width: int):
@@ -128,5 +131,4 @@ def _encode_step_single_impl(lo: torch.Tensor, count, width: int):
     indices = torch.empty_like(uid).scatter_(1, spos, uid)
     slot = torch.where(is_new, uid, n).to(torch.int64)
     ulo = key.new_full((C, n + 1), U32_PAD).scatter_(1, slot, slo)[:, :n]
-    masked = torch.where(valid, indices, 0)
-    return bitpack_pages(masked, width), ulo, k
+    return _pack_rows(indices, count, width), ulo, k

@@ -17,7 +17,8 @@ from kpw_tpu.core import encodings as enc
 from kpw_tpu.ops import packing as jpacking
 from kpw_tpu.ops.pallas_bitpack import LANE_TILE, bitpack_pages_pallas
 from kpw_tpu_torch.ops import packing
-from kpw_tpu_torch.ops.bitpack import bitpack_pages, bitpack_pages_plain
+from kpw_tpu_torch.ops.bitpack import (bitpack_pages, bitpack_pages_plain,
+                                       pack_pages, pack_pages_plain)
 
 # Small inputs: more intra-op threads would only contend for the CPU
 # with the suite's other test workers.
@@ -101,6 +102,68 @@ def test_pack_pages_multi_matches_jax(monkeypatch, pallas, runny):
     np.testing.assert_array_equal(got_packed.numpy(), np.asarray(want_packed))
     np.testing.assert_array_equal(got_long.numpy(), np.asarray(want_long))
     assert got_long.dtype == torch.int32
+
+
+def _window_cases():
+    """(C, ld) index batch with runs of 8..40 equal values, and a page table
+    whose windows start unaligned, run past ``ld`` and hold counts of 0, 1,
+    7, 9 and others that are not multiples of 8."""
+    rng = np.random.default_rng(11)
+    C, ld, width_max = 3, 1001, 32
+    idx = rng.integers(0, 1 << width_max, (C, ld), dtype=np.uint64).astype(np.uint32)
+    pos = 0
+    while pos < ld:  # column 1: runs of 1..40 equal values
+        n = int(rng.integers(1, 41))
+        idx[1, pos:pos + n] = rng.integers(0, 1 << 32, dtype=np.uint64)
+        pos += n
+    idx[2, 250:290] = 5  # a 40-run straddling the 256-value window edge
+    table = np.array([
+        [0, 0, 256], [1, 1, 255], [1, 3, 0], [2, 250, 1], [2, 7, 7],
+        [1, 517, 9], [2, 249, 100], [0, 900, 256],  # past ld: zeros, valid
+        [1, 1000, 13], [2, 1001, 256], [1, 123, 200]], np.int32)
+    return idx, table
+
+
+@pytest.mark.parametrize("pallas", ["0", "interpret"])
+@pytest.mark.parametrize("width", [1, 7, 13, 32])
+def test_fused_pack_plain_matches_jax(monkeypatch, pallas, width):
+    """The fused pack's plain version against the JAX ``pack_pages_multi``
+    (its XLA route and its Pallas kernel in interpret mode): unaligned
+    starts, windows past ``ld``, counts 0 / 1 / 7 / 9 / ragged."""
+    monkeypatch.setenv("KPW_PALLAS", pallas)
+    idx, table = _window_cases()
+    vals = idx & np.uint32((1 << width) - 1 if width < 32 else 0xFFFF_FFFF)
+    want_packed, want_long = jpacking.pack_pages_multi(
+        jnp.asarray(vals), jnp.asarray(table[:, 0]), jnp.asarray(table[:, 1]),
+        jnp.asarray(table[:, 2]), 256, width)
+    got_packed, got_long = pack_pages(_t(vals), torch.from_numpy(table), 256, width)
+    np.testing.assert_array_equal(got_packed.numpy(), np.asarray(want_packed))
+    np.testing.assert_array_equal(got_long.numpy(), np.asarray(want_long))
+    # bits above the width are ignored: the unmasked batch packs the same
+    again, _ = pack_pages(_t(idx), torch.from_numpy(table), 256, width)
+    np.testing.assert_array_equal(again.numpy(), np.asarray(want_packed))
+
+
+def test_fused_pack_identity_table_is_bitpack():
+    """No page table: page p is row p, start 0, count bucket, exactly the
+    plain bit-pack of the rows; no statistics asked, none returned."""
+    rng = np.random.default_rng(2)
+    pages = _t(rng.integers(0, 1 << 11, (3, 512)).astype(np.uint32))
+    packed, long_sum = pack_pages(pages, None, 512, 11, stats=False)
+    assert long_sum is None
+    assert torch.equal(packed, bitpack_pages_plain(pages, 11))
+    assert torch.equal(pack_pages_plain(pages, None, 512, 11)[0], packed)
+
+
+def test_page_table_is_one_int32_upload():
+    table = packing.page_table([2, 0], [5, 0], [7, 256], "cpu")
+    assert table.dtype == torch.int32 and table.tolist() == [[2, 5, 7], [0, 0, 256]]
+    assert packing.page_table([], [], [], "cpu").shape == (0, 3)
+    with pytest.raises(ValueError):
+        packing.page_table([0], [-1], [8], "cpu")
+    with pytest.raises(ValueError):
+        pack_pages(torch.zeros((1, 8), dtype=torch.int32),
+                   torch.zeros((1, 2), dtype=torch.int32), 8, 3)
 
 
 @pytest.mark.parametrize("start,count", [(0, 1000), (37, 256), (3000, 1096)])

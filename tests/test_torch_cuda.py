@@ -31,16 +31,87 @@ def _t(a: np.ndarray, dev) -> torch.Tensor:
 @pytest.mark.parametrize("bucket", [256, 12288])
 @pytest.mark.parametrize("width", [1, 3, 8, 13, 16, 31, 32])
 def test_bitpack_kernel_equals_plain(card, width, bucket):
-    from kpw_tpu_torch.ops.bitpack import bitpack_pages, bitpack_pages_plain
+    from kpw_tpu_torch.ops.bitpack import bitpack_pages, bitpack_pages_plain, pack_pages
 
     rng = np.random.default_rng(width * bucket)
     vals = rng.integers(0, 1 << width, (3, bucket), dtype=np.uint64)
     vals[:, ::5] |= np.uint64(1 << (width - 1))
     pages = _t(vals.astype(np.uint32), card)
-    before = bitpack_pages.launches
+    before = pack_pages.launches
     got = bitpack_pages(pages, width)
-    assert bitpack_pages.launches == before + 1
+    assert pack_pages.launches == before + 1
     assert torch.equal(got, bitpack_pages_plain(pages, width))
+
+
+@pytest.mark.parametrize("width", [1, 2, 3, 7, 8, 9, 12, 13, 16, 20, 31, 32])
+def test_fused_pack_kernel_equals_plain(card, width):
+    """Windows of 16,384 values (four spans of the kernel's blocks) that
+    start unaligned, run past ``ld``, hold counts of 0 / 1 / 7 / 9 /
+    ragged, and runs of 8..40 equal values across the span edges."""
+    from kpw_tpu_torch.ops.bitpack import pack_pages, pack_pages_plain
+
+    rng = np.random.default_rng(100 + width)
+    C, ld, bucket = 4, 40_003, 16_384
+    vals = rng.integers(0, 1 << width, (C, ld), dtype=np.uint64).astype(np.uint32)
+    vals[0, ::7] |= np.uint32(0x8000_0000)  # bits above the width are ignored
+    pos = 0
+    while pos < ld:  # column 1: runs of 1..40 equal values everywhere
+        n = int(rng.integers(1, 41))
+        vals[1, pos:pos + n] = rng.integers(0, 1 << width, dtype=np.uint64)
+        pos += n
+    for edge in range(4096 - 20, ld, 4096):  # column 2: runs across span edges
+        vals[2, edge:edge + 8 + edge % 33] = 3
+    table = np.array([
+        [0, 0, 16_384], [1, 1, 16_383], [2, 3, 0], [2, 5, 1], [1, 4090, 7],
+        [2, 9, 9], [3, 37, 12_345], [1, 30_001, 16_384],  # past ld
+        [0, 40_003, 100], [2, 4093, 16_000], [1, 17, 4096 + 8]], np.int32)
+    idx = _t(vals, card)
+    tab = torch.from_numpy(table).to(card)
+    before = pack_pages.launches
+    got_p, got_l = pack_pages(idx, tab, bucket, width)
+    assert pack_pages.launches == before + 1
+    want_p, want_l = pack_pages_plain(idx, tab, bucket, width)
+    assert torch.equal(got_p, want_p)
+    assert torch.equal(got_l, want_l)
+    # no table: rows 0..3 from start 0, one count for all, by value and
+    # as a device tensor
+    want = pack_pages_plain(idx, None, bucket, width, True, 9_999)
+    for count in (9_999, torch.tensor(9_999, device=card)):
+        got = pack_pages(idx, None, bucket, width, True, count)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # an empty page table launches nothing and counts nothing
+    before = pack_pages.launches
+    empty = pack_pages(idx, tab[:0], bucket, width)
+    assert empty[0].shape == (0, bucket * width // 8) and empty[1].shape == (0,)
+    assert pack_pages.launches == before
+
+
+@pytest.mark.parametrize("C", [5, 64])
+@pytest.mark.parametrize("nhi", [8, 128])
+def test_hist_dict_kernel_equals_plain(card, nhi, C):
+    """hist + dictionary across both ranks of each column's cluster:
+    columns with 1..8 distinct values, a ragged count (int and device
+    tensor), values at or above the bound, ulo narrower and wider than
+    nhi*64 (the pad written to its end)."""
+    from kpw_tpu_torch.ops import rank
+
+    rng = np.random.default_rng(nhi + C)
+    vb = nhi * 64
+    N, count = 8192 + 128, 8192 - 77
+    vals = rng.integers(0, vb, (C, N)).astype(np.uint32)
+    for c in range(1, C):
+        vals[c] = rng.choice(rng.choice(vb, size=c % 8 + 1, replace=False), N)
+    vals[:, 5] = vb + 12345
+    vals[:, 6] = 0xFFFF_FFFF
+    lo = _t(vals, card)
+    before = rank.hist_dict.launches
+    for cnt, cols in ((count, None), (torch.tensor(count, device=card), N),
+                      (N, 100)):
+        got = rank.hist_dict(lo, cnt, nhi, ulo_cols=cols)
+        want = rank.hist_dict_plain(lo, cnt, nhi, ulo_cols=cols)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert rank.hist_dict.launches == before + 3
 
 
 @pytest.mark.parametrize("nhi", [8, 32, 128])
@@ -67,10 +138,8 @@ def test_flagship_step_card_equals_cpu(card, bound):
     lo = torch.from_numpy(rng.integers(0, bound or 5000, (8, 4096)).astype(np.int32))
     got = encode_step_single(lo.to(card), 4000, value_bound=bound)
     want = encode_step_single(lo, 4000, value_bound=bound)
-    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[2].cpu(), want[2])
-    for c in range(8):
-        k = int(want[2][c])
-        assert torch.equal(got[1][c, :k].cpu(), want[1][c, :k])
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
 
 
 @pytest.mark.parametrize("pipeline", [False, True])

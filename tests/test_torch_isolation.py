@@ -100,45 +100,66 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         bitpack.bitpack_pages(pages, 5)
     with pytest.raises(ValueError, match="unsupported device"):
+        bitpack.pack_pages(pages, None, 256, 5)
+    with pytest.raises(ValueError, match="unsupported device"):
         rank.hist_pages(pages, 8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        rank.hist_dict(pages, 200, 8)
     with pytest.raises(ValueError, match="unsupported device"):
         rank.rank_pages(pages, rt)
 
 
 def _wrapper_cases():
-    """(wrapper, its plain version's module attribute, inputs maker)."""
+    """(module, wrapper, the function that counts its kernel's launches,
+    plain versions it must not reach, inputs maker)."""
     def pages():
         return (torch.empty((2, 256), dtype=torch.int32, device="cuda"), 5)
 
+    def windows():
+        return (torch.empty((2, 256), dtype=torch.int32, device="cuda"),
+                torch.empty((3, 3), dtype=torch.int32, device="cuda"), 256, 5)
+
     def values():
         return (torch.empty((2, 256), dtype=torch.int32, device="cuda"), 8)
+
+    def counted():
+        return (torch.empty((2, 256), dtype=torch.int32, device="cuda"), 200, 8)
 
     def ranked():
         return (torch.empty((2, 256), dtype=torch.int32, device="cuda"),
                 torch.empty((2, 8, 64), dtype=torch.int32, device="cuda"))
 
-    return [(bitpack, "bitpack_pages", pages), (rank, "hist_pages", values),
-            (rank, "rank_pages", ranked)]
+    pack_plain = ("pack_pages_plain", "bitpack_pages_plain")
+    hist_plain = ("hist_dict_plain", "hist_pages_plain", "presence_to_dict")
+    return {
+        "bitpack": (bitpack, "bitpack_pages", "pack_pages", pack_plain, pages),
+        "pack": (bitpack, "pack_pages", "pack_pages", pack_plain, windows),
+        "hist": (rank, "hist_pages", "hist_dict", hist_plain, values),
+        "hist_dict": (rank, "hist_dict", "hist_dict", hist_plain, counted),
+        "rank": (rank, "rank_pages", "rank_pages", ("rank_pages_plain",), ranked),
+    }
 
 
-@pytest.mark.parametrize("case", range(3), ids=["bitpack", "hist", "rank"])
+@pytest.mark.parametrize("case", ["bitpack", "pack", "hist", "hist_dict", "rank"])
 def test_wrappers_raise_on_cuda_tensors_without_the_toolkit(monkeypatch, case):
     """A CUDA tensor (a fake one: this PyTorch build cannot make real ones)
     sends each wrapper to its kernel, whose build raises for want of
-    ``nvcc``; the plain version is never called and nothing is counted."""
+    ``nvcc``; no plain version is called and nothing is counted."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the CUDA build path is live")
-    module, name, inputs = _wrapper_cases()[case]
+    module, name, counter, plains, inputs = _wrapper_cases()[case]
     wrapper = getattr(module, name)
+    counting = getattr(module, counter)
 
-    def fell_back(*args):
-        raise AssertionError(f"{name} fell back to its plain version")
+    def fell_back(*args, **kwargs):
+        raise AssertionError(f"{name} fell back to a plain version")
 
     def no_nvcc():
         raise RuntimeError("nvcc not found: no CUDA toolkit here")
 
-    monkeypatch.setattr(module, f"{name}_plain", fell_back)
-    monkeypatch.setattr(wrapper, "launches", 0)
+    for plain in plains:
+        monkeypatch.setattr(module, plain, fell_back)
+    monkeypatch.setattr(counting, "launches", 0)
     monkeypatch.setattr(_build, "_libs", {})
     monkeypatch.setattr(bitpack, "_fn", None)
     monkeypatch.setattr(rank, "_fns", {})
@@ -148,7 +169,7 @@ def test_wrappers_raise_on_cuda_tensors_without_the_toolkit(monkeypatch, case):
         assert args[0].device.type == "cuda"
         with pytest.raises(RuntimeError, match="nvcc not found"):
             wrapper(*args)
-    assert wrapper.launches == 0
+    assert counting.launches == 0
 
 
 def test_device_paths_refuse_a_missing_card():
@@ -166,21 +187,22 @@ def test_device_paths_refuse_a_missing_card():
         with pytest.raises(RuntimeError, match="nvcc not found"):
             _build.build()
         with pytest.raises(RuntimeError, match="nvcc not found"):
-            _build.function("bitpack", "kpw_bitpack", [])
+            _build.function("bitpack", "kpw_pack_pages", [])
 
 
-def _counters():
-    return (bitpack.bitpack_pages.launches, rank.hist_pages.launches,
-            rank.rank_pages.launches)
+_COUNTING = (bitpack.pack_pages, rank.hist_dict, rank.rank_pages)
 
 
 def test_cpu_tensors_launch_no_kernel(monkeypatch):
-    for f in (bitpack.bitpack_pages, rank.hist_pages, rank.rank_pages):
+    for f in _COUNTING:
         monkeypatch.setattr(f, "launches", 0)
     rng = np.random.default_rng(0)
     lo = torch.from_numpy(rng.integers(0, 300, (4, 1024)).astype(np.int32))
     encode_step_single(lo, 1000, value_bound=300)  # bounded route
+    encode_step_single(lo, torch.tensor(1000), value_bound=300)
     encode_step_single(lo, 1000)  # sort route
+    rank.hist_pages(lo, 8)
+    bitpack.bitpack_pages(lo, 9)
     schema = T.Schema([T.leaf("a", "int64"), T.leaf("b", "double")])
     props = T.WriterProperties()
     w = T.ParquetFileWriter(io.BytesIO(), schema, props,
@@ -191,4 +213,4 @@ def test_cpu_tensors_launch_no_kernel(monkeypatch):
         "a": rng.integers(0, 50, 5000).astype(np.int64),
         "b": rng.choice(rng.normal(size=9), 5000)}))
     w.close()
-    assert _counters() == (0, 0, 0)
+    assert tuple(f.launches for f in _COUNTING) == (0, 0, 0)

@@ -76,10 +76,52 @@ def test_presence_to_dict_matches_jax(nhi):
     np.testing.assert_array_equal(ulo.numpy().astype(np.uint32), np.asarray(ulo_j))
 
 
+def _ragged_values(nhi: int, C: int, N: int, seed: int):
+    """(C, N) uint32: column 0 uniform below the bound, the others with 1..8
+    distinct values, a few values at or above the bound anywhere."""
+    rng = np.random.default_rng(seed)
+    vb = nhi * 64
+    vals = rng.integers(0, vb, (C, N)).astype(np.uint32)
+    for c in range(1, C):
+        few = rng.choice(vb, size=min(c, 8), replace=False)
+        vals[c] = rng.choice(few, N)
+    vals[:, 3] = vb
+    vals[:, 9] = 0xFFFF_FFFF
+    return vals
+
+
+@pytest.mark.parametrize("nhi,N,count", [(8, 256, 200), (32, 512, 512),
+                                         (128, 1024, 1000), (8, 384, 0),
+                                         (128, 256, 1)])
+def test_hist_dict_plain_matches_jax(nhi, N, count):
+    """hist + dictionary over the first ``count`` rows equal the JAX
+    ``hist_pages_core`` (interpret mode) on the masked batch followed by
+    its ``presence_to_dict``: counts, rt (absent bins included), the whole
+    dictionary row with its pad, and k."""
+    vals = _ragged_values(nhi, 4, N, nhi + N + count)
+    masked = vals.copy()
+    masked[:, count:] = nhi * 64
+    counts_j = J.hist_pages_core(jnp.asarray(masked), nhi, interpret=True)
+    rt_j, ulo_j, k_j = J.presence_to_dict(counts_j, nhi)
+    counts, rt, ulo, k = T.hist_dict(_t(vals), count, nhi)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(counts_j).astype(np.int64))
+    np.testing.assert_array_equal(rt.numpy(), np.asarray(rt_j))
+    np.testing.assert_array_equal(ulo.numpy().astype(np.uint32), np.asarray(ulo_j))
+    np.testing.assert_array_equal(k.numpy(), np.asarray(k_j))
+    # a 0-d tensor count gives the same; ulo cut or padded to ulo_cols
+    same = T.hist_dict(_t(vals), torch.tensor(count), nhi, ulo_cols=N)
+    assert all(torch.equal(a, b) for a, b in zip(same[:2], (counts, rt)))
+    lim = min(nhi * 64, N)
+    assert torch.equal(same[2][:, :lim], ulo[:, :lim])
+    assert (same[2][:, lim:] == 0xFFFF_FFFF).all()
+
+
 def test_rank_and_hist_plain_are_the_cpu_path():
     vals = _t(_masked_values(32, 3, 384, 300, 11))
     counts = T.hist_pages(vals, 32)
     assert torch.equal(counts, T.hist_pages_plain(vals, 32))
+    assert all(torch.equal(a, b) for a, b in zip(
+        T.hist_dict(vals, 300, 32), T.hist_dict_plain(vals, 300, 32)))
     rt, _, _ = T.presence_to_dict(counts, 32)
     assert torch.equal(T.rank_pages(vals, rt), T.rank_pages_plain(vals, rt))
 

@@ -1,8 +1,9 @@
 """Port flagship step (kpw_tpu_torch.parallel.sharded.encode_step_single)
 against the JAX function on the same numpy inputs: packed bytes, the
-unique counts k and the dictionary prefix ulo[:k] must be equal.  The JAX
-side runs its Pallas kernels in interpret mode (KPW_PALLAS=interpret), so
-its bounded cases take the histogram + rank kernels as the port does."""
+unique counts k and the dictionary prefix ulo[:k] must be equal, and the
+port's ulo padded with 0xFFFFFFFF after it.  The JAX side runs its Pallas
+kernels in interpret mode (KPW_PALLAS=interpret), so its bounded cases
+take the histogram + rank kernels as the port does."""
 
 import numpy as np
 import pytest
@@ -29,6 +30,8 @@ def _compare(got, want):
     for c in range(len(wk)):
         np.testing.assert_array_equal(gu.numpy()[c, :wk[c]].astype(np.uint32),
                                       wu[c, :wk[c]])
+        # the JAX pad is unspecified; the port's is 0xFFFFFFFF on both routes
+        assert (gu.numpy()[c, wk[c]:] == 0xFFFF_FFFF).all()
 
 
 @pytest.mark.parametrize("vb,n,c,count_off", [
@@ -65,6 +68,25 @@ def test_encode_step_single_count_zero(monkeypatch):
     _compare(got, want)
 
 
+@pytest.mark.parametrize("vb", [None, 270, 1 << 13])
+@pytest.mark.parametrize("count_kind", ["int", "tensor"])
+def test_int64_ragged_count_matches_jax(monkeypatch, vb, count_kind):
+    """Both routes on int64 input (unsigned 32-bit values) with a ragged
+    valid count, as an int and as a 0-d tensor, against the JAX function:
+    the fused kernels take the unmasked values and zero the tail."""
+    monkeypatch.setenv("KPW_PALLAS", "interpret")
+    rng = np.random.default_rng(29)
+    n, c, count = 1024, 3, 1000 - 7
+    lo = rng.integers(0, vb or (1 << 32), (c, n), dtype=np.uint64).astype(np.uint32)
+    lo[:, count:] = rng.integers(0, 1 << 32, (c, n - count), dtype=np.uint64)
+    want = J.encode_step_single(jnp.asarray(lo), jnp.int32(count), width=16,
+                                value_bound=vb)
+    cnt = count if count_kind == "int" else torch.tensor(count, dtype=torch.int32)
+    got = T.encode_step_single(torch.from_numpy(lo.astype(np.int64)), cnt,
+                               width=16, value_bound=vb)
+    _compare(got, want)
+
+
 @pytest.mark.parametrize("vb", [270, None])
 def test_routes_agree_with_each_other(vb):
     """Bounded and sort routes give the same output on the same input."""
@@ -72,10 +94,7 @@ def test_routes_agree_with_each_other(vb):
     lo = torch.from_numpy(rng.integers(0, 270, (3, 1024)).astype(np.int32))
     a = T.encode_step_single(lo, 1000, width=16, value_bound=vb)
     b = T.encode_step_single(lo, 1000, width=16)
-    assert torch.equal(a[0], b[0]) and torch.equal(a[2], b[2])
-    for c in range(3):
-        k = int(a[2][c])
-        assert torch.equal(a[1][c, :k], b[1][c, :k])
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def test_int64_input_is_read_as_unsigned_32_bit():
