@@ -12,33 +12,45 @@ Phases, in order; any failed check exits non-zero before the result lines:
 2. build — compile the port's CUDA kernels from ``kpw_tpu_torch/csrc``;
 3. kernels — every kernel against its plain PyTorch version on the card,
    element for element (the fused pack on unaligned, ragged, past-the-end
-   windows at every width; the hist + dictionary kernel on columns with
-   few distinct values, ragged counts and dictionaries narrower and wider
-   than its table), then each timed at the flagship shape with CUDA events
-   (median of 25 runs, L2 flushed before each) beside its plain version,
-   the PyTorch library call that computes the same function, and its
-   memory bound, the hist kernel on both bounded distributions; the
-   unfused routes (tensor ops around a kernel) against the fused kernels,
-   in turns;
+   windows at every width, with and without its run count; the hist +
+   dictionary kernel on columns with few distinct values, ragged counts
+   and dictionaries narrower and wider than its table; the delta kernel
+   on both rings, wraparound edges, every width bucket and ragged counts,
+   each assembled page also against ``core.encodings``), then each timed
+   with CUDA events (median of 25 runs, L2 flushed before each) beside its
+   plain version, the PyTorch library call that computes the same
+   function, and its memory bound — the pack, hist and rank at the
+   flagship shape (the pack without its run count), the delta kernel at
+   the shape the encodings path gives it; the unfused routes (tensor ops
+   around a kernel) against the fused kernels, in turns;
 4. flagship — ``entry()`` and ``encode_step_single`` at 64 x 65,536 on the
    sort route and both bounded routes, each run once and equal to the same
    step run on the CPU (plain versions);
-5. writer — a taxi-shaped 64-column table, 1,048,576 rows in four row
-   groups, through ``ParquetFileWriter`` + ``CudaChunkEncoder``, row group
-   by row group and through the writer's pipeline; both files must equal,
-   byte for byte, the one the port's ``CpuChunkEncoder`` writes;
+5. writers — four files through ``ParquetFileWriter`` + ``CudaChunkEncoder``,
+   each row group by row group and through the writer's pipeline, each
+   equal byte for byte to the one the port's ``CpuChunkEncoder`` writes:
+   ``writer``, a taxi-shaped 64-column table, 1,048,576 rows in four row
+   groups; ``levels``, the same table with optional columns (rep/def level
+   pages); ``nested``, BASELINE config 5's 32,768 orders shredded with
+   numpy (rep levels); ``encodings``, the adaptive-encodings corpus,
+   400,000 rows, with delta and BYTE_STREAM_SPLIT overrides; after each
+   path its kernels are replayed on the inputs it gave them (every level
+   batch and page table through the pack with its run count, every delta
+   group of either ring) against their plain versions, exactly;
 6. timing — each flagship route's step time and device profile (device
    ops per step), the dictionary build's two routes on one row group's
    columns, one row group's pack jobs through the fused kernel and the
-   unfused route in turns, and one writer row group's stage spans and device
-   profile.
+   unfused route in turns, and one row group of each writer path: stage
+   spans and device profile (device ops, busy time, copy time).
 
 Phases 4 and 5 are the main paths: every launch count is set to 0 just
-before each and read just after, and a kernel of the path that never
-launched fails the run; the ``launches`` reported are their sum.  The
-writer must make exactly one pack launch a job and no padded index copy.  The line
-before the last is one JSON object with a record per kernel; the last line
-is ``{"ok": true, "device": {...}}``.
+before each of them and read just after, and a kernel of the path that
+never launched fails the run; the ``launches`` reported are their sum.
+The taxi writer must make exactly one pack launch a job and no padded
+index copy; each new writer path must call its device routes (level
+statistics and run extraction, delta pages, the BYTE_STREAM_SPLIT
+transpose).  The line before the last is one JSON object with a record
+per kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -57,6 +69,8 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 C_FLAG, N_FLAG = 64, 65536  # flagship shape: the bench probe's 64 x 65,536
 TAXI_COLS, TAXI_ROWS, TAXI_GROUPS = 64, 262_144, 4
+NESTED_ROWS, NESTED_GROUPS = 32_768, 4  # BASELINE config 5: bench.py:1588
+ENC_ROWS, ENC_BATCHES = 400_000, 8  # the encodings corpus: bench.py:4928
 
 
 def fail(msg: str) -> None:
@@ -182,12 +196,18 @@ def check_pack(torch, rng) -> int:
             rng.integers(0, top, ld, dtype=np.uint64).astype(np.uint32)])
         idx = torch.from_numpy(vals.view(np.int32)).to("cuda")
         for tab, cnt in ((table, None), (None, 12_345)):
-            got_p, got_l = bitpack.pack_pages(idx, tab, bucket, width, True, cnt)
-            want_p, want_l = bitpack.pack_pages_plain(idx, tab, bucket, width, True, cnt)
-            e = max(max_abs_err(torch, got_p, want_p),
-                    max_abs_err(torch, got_l, want_l))
-            check(e == 0, f"fused pack width {width} count {cnt}: max err {e}")
-            worst = max(worst, e)
+            want = bitpack.pack_pages_plain(idx, tab, bucket, width, True, cnt,
+                                            n_runs=True)
+            for runs in (False, True):
+                got = bitpack.pack_pages(idx, tab, bucket, width, True, cnt,
+                                         n_runs=runs)
+                check((got[2] is None) != runs,
+                      f"fused pack n_runs {runs}: run count returned {got[2]}")
+                e = max(max_abs_err(torch, g, w) for g, w in zip(got, want)
+                        if g is not None)
+                check(e == 0, f"fused pack width {width} count {cnt} n_runs "
+                      f"{runs}: max err {e}")
+                worst = max(worst, e)
     cases = 0
     for bucket in (256, 65536, 12288):
         for width in range(1, 33):
@@ -200,7 +220,7 @@ def check_pack(torch, rng) -> int:
             check(e == 0, f"bitpack width {width} bucket {bucket}: max err {e}")
             cases += 1
     torch.cuda.synchronize()
-    say(f"[kernels] fused pack == plain (packed bytes and long_sum) on 32 "
+    say(f"[kernels] fused pack == plain (packed bytes, long_sum and n_runs) on 32 "
         f"widths x {table.shape[0]} windows (unaligned starts, counts 0/1/7/9/"
         f"ragged, past ld, runs across span edges) plus the table-less rows "
         f"with one count, and the identity table on {cases} (width, bucket) "
@@ -269,6 +289,72 @@ def check_rank(torch, rng) -> int:
     return worst
 
 
+def delta_rows(rng, bit_size: int) -> list:
+    """(label, values) rows for the delta kernel: the wraparound edges of
+    the JAX package's delta tests (INT64_MIN/MAX with them), zero deltas, a
+    near-sorted walk, one row per width bucket 8/16/24/32/48/64 the ring
+    has, and uniform values over the whole ring."""
+    itype = np.int64 if bit_size == 64 else np.int32
+    info = np.iinfo(itype)
+    n = 3_000
+    rows = [("edges", np.resize(np.array([0, info.max, info.min, 17, 7, -1],
+                                         itype), n)),
+            ("zero deltas", np.full(n, -5, itype)),
+            ("walk", np.cumsum(rng.integers(0, 9, n)).astype(itype))]
+    for bits in (5, 12, 20, 28, 40, 60):
+        if bits < bit_size:
+            rows.append((f"range 2^{bits}",
+                         (rng.integers(0, 1 << bits, n) - (1 << (bits - 1))).astype(itype)))
+    rows.append(("uniform", rng.integers(info.min, info.max, n, dtype=itype,
+                                         endpoint=True)))
+    return rows
+
+
+def check_delta(torch, rng) -> int:
+    """The delta kernel against its plain version, exactly, on both rings:
+    for each row of :func:`delta_rows`, pages of counts 0, 1, 2, 127, 128,
+    129 and ragged ones at unaligned starts and past the row's end, at the
+    row's own width bucket (one launch each); then every assembled page
+    against ``core.encodings.delta_binary_packed_encode``.  Returns the
+    largest error (0)."""
+    from kpw_tpu_torch.core import encodings as enc
+    from kpw_tpu_torch.ops import delta
+
+    worst, launches, buckets = 0, 0, set()
+    pages = ((0, 2), (3, 127), (1, 128), (5, 129), (0, 0), (9, 1), (17, 1_000),
+             (1_234, 1_766), (2_990, 10), (3_000, 4), (7, 2_048))
+    bucket = 2_048
+    for bit_size in (32, 64):
+        for label, vals in delta_rows(rng, bit_size):
+            max_bits = delta.delta_bits_bucket(int(vals.max()) - int(vals.min()),
+                                               bit_size)
+            buckets.add((bit_size, max_bits))
+            streams = torch.from_numpy(vals[None, :]).to("cuda")
+            table = torch.tensor([[0, s, c] for s, c in pages], dtype=torch.int32,
+                                 device="cuda")
+            got = delta.delta_pages(streams, table, bucket, bit_size, max_bits)
+            want = delta.delta_pages_plain(streams, table, bucket, bit_size, max_bits)
+            launches += 1
+            e = max(max_abs_err(torch, g, w) for g, w in zip(got, want))
+            check(e == 0, f"delta ring {bit_size} {label}: max err {e}")
+            worst = max(worst, e)
+            mins, widths, packed = (t.cpu().numpy() for t in got)
+            for r, (s, c) in enumerate(pages):
+                window = vals[s:s + c]
+                body = delta.assemble_delta_page(
+                    int(window[0]) if len(window) else 0, len(window), mins[r],
+                    widths[r], packed[r], bit_size, max_bits)
+                check(body == enc.delta_binary_packed_encode(window, bit_size),
+                      f"delta ring {bit_size} {label} page {(s, c)}: assembled "
+                      "stream differs from the oracle")
+    torch.cuda.synchronize()
+    say(f"[kernels] delta == plain on both rings ({launches} launches, width "
+        f"buckets {sorted(buckets)}; wraparound edges, counts 0/1/2/127/128/129/"
+        "ragged, starts past the row's end) and every assembled page == "
+        "core.encodings.delta_binary_packed_encode")
+    return worst
+
+
 def abba(timer: Timer, a, b) -> tuple[float, float, list]:
     """Time a and b in turns (a b b a); returns their means and all four."""
     t = [timer.ms(a), timer.ms(b), timer.ms(b), timer.ms(a)]
@@ -286,7 +372,7 @@ def phase_kernels(torch, timer: Timer) -> dict:
     rng = np.random.default_rng(1234)
     dev = "cuda"
     err = {"bitpack": check_pack(torch, rng), "hist": check_hist(torch, rng),
-           "rank": check_rank(torch, rng)}
+           "rank": check_rank(torch, rng), "delta": check_delta(torch, rng)}
 
     # the flagship shape and count of the main path (flagship_path)
     C, N, W = C_FLAG, N_FLAG, 16
@@ -359,6 +445,7 @@ def phase_kernels(torch, timer: Timer) -> dict:
             bytes=C * N * 4 + C * vb * 4 + C * N * 4,
             shape=f"({C}, {N}) int32 + ({C}, {NHI}, 64) int32 -> ({C}, {N}) int32"),
     }
+    recs["delta"] = delta_record(torch, timer, err["delta"])
     for name, r in recs.items():
         r["max_abs_err"] = err[name]
         r["bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -408,6 +495,46 @@ def phase_kernels(torch, timer: Timer) -> dict:
         f"(where mask + hist + presence_to_dict + pad) {old:.4f} ms, fused "
         f"{new:.4f} ms; turns {', '.join(f'{x:.4f}' for x in t)}")
     return recs
+
+
+def delta_record(torch, timer: Timer, err: int) -> dict:
+    """The delta kernel timed at the shape the encodings path hands it: one
+    row group's three int64 streams (ts, seq, rid: 50,000 values each) as
+    one (bucket 65,536, 64-bit ring) group, at the group's width budget;
+    checked against its plain version on the same inputs first."""
+    from kpw_tpu_torch.ops import delta
+
+    arrays = make_encodings_corpus(ENC_ROWS)
+    n = ENC_ROWS // ENC_BATCHES
+    cols = [np.ascontiguousarray(arrays[c][:n], np.int64) for c in ("ts", "seq", "rid")]
+    max_bits = max(delta.delta_bits_bucket(int(v.max()) - int(v.min()), 64)
+                   for v in cols)
+    bucket = 1 << (n - 1).bit_length()
+    streams = torch.from_numpy(np.stack(cols)).to("cuda")
+    table = torch.tensor([[r, 0, n] for r in range(len(cols))], dtype=torch.int32,
+                         device="cuda")
+    got = delta.delta_pages(streams, table, bucket, 64, max_bits)
+    want = delta.delta_pages_plain(streams, table, bucket, 64, max_bits)
+    e = max(max_abs_err(torch, g, w) for g, w in zip(got, want))
+    check(e == 0, f"delta at the encodings shape: max err {e}")
+    P, blocks = len(cols), bucket // 128
+    used = -(-(n - 1) // 128)  # the blocks that hold a page's n - 1 deltas
+    return dict(
+        name="delta", route="cuda", source="kpw_tpu_torch/csrc/delta.cu",
+        replaces="kpw_tpu/ops/delta.py:119 (_delta_window, XLA code; no pallas_call)",
+        max_abs_err=max(err, e),
+        ms=timer.ms(lambda: delta.delta_pages(streams, table, bucket, 64, max_bits)),
+        plain_ms=timer.ms(lambda: delta.delta_pages_plain(streams, table, bucket,
+                                                          64, max_bits)),
+        library_ms=None,
+        # each page's values and table row read once, the mins, widths and
+        # packed slots of its blocks that hold deltas written once; the
+        # kernel also writes the bucket's padding blocks past them, which
+        # the host never reads: overhead, left out of the bound
+        bytes=P * n * 8 + P * 12 + P * used * (8 + 16 + 16 * max_bits),
+        shape=f"({P}, {n}) int64 streams, bucket {bucket}, max_bits {max_bits} -> "
+              f"mins ({P}, {blocks}), widths ({P}, {blocks}, 4), packed "
+              f"({P}, {blocks}, 4, {4 * max_bits})")
 
 
 def flagship_path(torch) -> list:
@@ -476,94 +603,18 @@ def make_taxi_like(rows: int, seed: int = 0) -> dict:
     return cols
 
 
-def taxi_setup():
-    """The taxi table (four 262,144-row groups), its schema and the writer's
-    default properties (UNCOMPRESSED, 1 MiB pages, 128 MiB row groups)."""
-    from kpw_tpu_torch.core import Schema, WriterProperties, leaf
+def writer_setup(small: bool = False):
+    """The taxi table in prebuilt batches, four row groups of 262,144 rows
+    (small: two of 8,192), its schema and the writer's default properties
+    (UNCOMPRESSED, 1 MiB pages, 128 MiB row groups)."""
+    from kpw_tpu_torch.core import Schema, WriterProperties, columns_from_arrays, leaf
 
-    groups = [make_taxi_like(TAXI_ROWS, seed=g) for g in range(TAXI_GROUPS)]
+    rows, n_groups = (8_192, 2) if small else (TAXI_ROWS, TAXI_GROUPS)
+    groups = [make_taxi_like(rows, seed=g) for g in range(n_groups)]
     types = {"int64": "int64", "int32": "int32", "float64": "double"}
     schema = Schema([leaf(n, types[str(v.dtype)]) for n, v in groups[0].items()])
-    return groups, schema, WriterProperties()
-
-
-def writer_warmup(groups, schema, props) -> None:
-    """One small row group through the card encoder, so that the measured
-    run pays no one-time set-up (allocator growth, library loads)."""
-    from kpw_tpu_torch.core import ParquetFileWriter, columns_from_arrays
-    from kpw_tpu_torch.ops.backend import CudaChunkEncoder
-
-    w = ParquetFileWriter(io.BytesIO(), schema, props,
-                          encoder=CudaChunkEncoder(props.encoder_options()))
-    w.write_batch(columns_from_arrays(
-        schema, {k: v[:8192] for k, v in groups[0].items()}))
-    w.close()
-
-
-def writer_path(torch, groups, schema, props) -> None:
-    """The taxi table through ``ParquetFileWriter`` + ``CudaChunkEncoder``,
-    one row group per batch, written twice: row group by row group, and
-    through the writer's pipeline, whose dispatch thread runs
-    ``launch_many`` while its assembly thread runs ``assemble_many`` of the
-    row group before.  Both files must equal, byte for byte, the one the
-    port's ``CpuChunkEncoder`` writes."""
-    from kpw_tpu_torch.core import ParquetFileWriter, columns_from_arrays
-    from kpw_tpu_torch.core.pages import CpuChunkEncoder
-    from kpw_tpu_torch.ops import backend, packing
-    from kpw_tpu_torch.ops.backend import CudaChunkEncoder
-
-    calls = {"jobs": 0, "pad_rows": 0}
-    multi, pad_rows = backend.pack_pages_multi, packing._pad_rows
-
-    def counted_multi(*args):
-        calls["jobs"] += 1
-        return multi(*args)
-
-    def counted_pad_rows(*args):
-        calls["pad_rows"] += 1
-        return pad_rows(*args)
-
-    def write(encoder, pipeline: bool = False):
-        buf = io.BytesIO()
-        # pipelined: every batch crosses row_group_size, so each is handed
-        # to the pipeline as its own row group, as the sequential run cuts
-        p = dataclasses.replace(props, row_group_size=1) if pipeline else props
-        t0 = time.perf_counter()
-        w = ParquetFileWriter(buf, schema, p, encoder=encoder, pipeline=pipeline)
-        for arrays in groups:
-            w.write_batch(columns_from_arrays(schema, arrays))
-            if pipeline:
-                w.maybe_flush_row_group()
-            else:
-                w.flush_row_group()
-        w.close()
-        if isinstance(encoder, CudaChunkEncoder):
-            torch.cuda.synchronize()
-        return buf.getvalue(), time.perf_counter() - t0, w.stage_busy_s
-
-    rows = TAXI_ROWS * TAXI_GROUPS
-    backend.pack_pages_multi, packing._pad_rows = counted_multi, counted_pad_rows
-    try:
-        got, t_cuda, _ = write(CudaChunkEncoder(props.encoder_options()))
-        piped, t_pipe, busy = write(CudaChunkEncoder(props.encoder_options()),
-                                    pipeline=True)
-    finally:
-        backend.pack_pages_multi, packing._pad_rows = multi, pad_rows
-    want, t_cpu, _ = write(CpuChunkEncoder(props.encoder_options()))
-    check(got == want, f"writer: CudaChunkEncoder file ({len(got)} bytes) != "
-          f"CpuChunkEncoder file ({len(want)} bytes)")
-    check(piped == want, f"writer: pipelined CudaChunkEncoder file "
-          f"({len(piped)} bytes) != CpuChunkEncoder file ({len(want)} bytes)")
-    check(busy["assemble"] > 0, "writer: the pipeline ran no assembly thread")
-    say(f"[writer] {TAXI_COLS} cols x {rows} rows in {TAXI_GROUPS} row groups, "
-        f"{len(got)} bytes, byte-identical; CudaChunkEncoder {t_cuda:.3f} s "
-        f"({rows / t_cuda:.0f} rows/s), pipelined {t_pipe:.3f} s "
-        f"({rows / t_pipe:.0f} rows/s; stage busy s "
-        + ", ".join(f"{k} {v:.3f}" for k, v in busy.items())
-        + f"), CpuChunkEncoder {t_cpu:.3f} s ({rows / t_cpu:.0f} rows/s)")
-    say(f"[writer] pack jobs {calls['jobs']}, padded index copies "
-        f"{calls['pad_rows']}")
-    return calls
+    return ([columns_from_arrays(schema, arrays) for arrays in groups], schema,
+            WriterProperties())
 
 
 def device_profile(torch, fn) -> str:
@@ -571,8 +622,9 @@ def device_profile(torch, fn) -> str:
     card's time went: the device's busy time (the union of the CUDA kernel,
     copy and memset intervals the profiler recorded, annotations excluded),
     its share of the call's wall time (host clock, ending in a
-    synchronize), the number of those device ops, and the top device ops by
-    summed time."""
+    synchronize), the number of those device ops, the summed time of the
+    host<->device copies among them, and the top device ops by summed
+    time."""
     from torch.autograd import DeviceType
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -599,14 +651,15 @@ def device_profile(torch, fn) -> str:
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    copy_us = sum(t for name, (t, _) in by_name.items() if name.startswith("Memcpy"))
     return (f"wall {wall * 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
-            f"({100 * busy_us / (wall * 1e6):.1f}%), device ops {len(evs)}; "
-            "top device ops: "
+            f"({100 * busy_us / (wall * 1e6):.1f}%), device ops {len(evs)}, "
+            f"host<->device copies {copy_us / 1e3:.3f} ms; top device ops: "
             + "; ".join(f"{name[:44]} {t / 1e3:.3f} ms x{n}"
                         for name, (t, n) in top))
 
 
-def dictionary_routes(torch, timer: Timer, arrays: dict) -> None:
+def dictionary_routes(torch, timer: Timer, batch) -> None:
     """The dictionary build's two routes on the card, on the same inputs:
     one taxi row group's 16 quantized-fare columns as the affine offsets the
     writer builds them from, through the bins build (the writer's route for
@@ -614,7 +667,7 @@ def dictionary_routes(torch, timer: Timer, arrays: dict) -> None:
     events), the offsets uploaded once."""
     from kpw_tpu_torch.ops import dictionary as D
 
-    cols = [v for k, v in arrays.items() if int(k[1:]) % 4 == 2]
+    cols = [c.values for c in batch.chunks if int(c.column.name[1:]) % 4 == 2]
     n, bucket = len(cols[0]), D.pad_bucket(len(cols[0]))
     ids = np.zeros((len(cols), bucket), np.uint32)
     R = 1
@@ -661,12 +714,12 @@ def unfused_pack_multi(torch, idx_all, col_ids, starts, counts, bucket: int,
     return bitpack.bitpack_pages(v, width), bitpack.run_long_stats(v, valid)
 
 
-def taxi_pack_jobs(torch, timer: Timer, schema, props, arrays) -> None:
+def taxi_pack_jobs(torch, timer: Timer, schema, props, batch) -> None:
     """One taxi row group's pack jobs, recorded as the encoder makes them,
     then replayed on the card: the fused kernel (one launch a job) against
     the unfused route, in turns, both equal; CUDA-event time of the four jobs
     together and one profiled pass of each (device busy, device ops)."""
-    from kpw_tpu_torch.core import ParquetFileWriter, columns_from_arrays
+    from kpw_tpu_torch.core import ParquetFileWriter
     from kpw_tpu_torch.ops import backend
     from kpw_tpu_torch.ops.backend import CudaChunkEncoder
 
@@ -681,7 +734,7 @@ def taxi_pack_jobs(torch, timer: Timer, schema, props, arrays) -> None:
     try:
         w = ParquetFileWriter(io.BytesIO(), schema, props,
                               encoder=CudaChunkEncoder(props.encoder_options()))
-        w.write_batch(columns_from_arrays(schema, arrays))
+        w.write_batch(batch)
         w.flush_row_group()
     finally:
         backend.pack_pages_multi = multi
@@ -712,14 +765,301 @@ def taxi_pack_jobs(torch, timer: Timer, schema, props, arrays) -> None:
     say(f"[routes] taxi pack jobs profiled: fused {device_profile(torch, fused)}")
 
 
-def writer_breakdown(torch, schema, props, arrays) -> None:
+# ---------------------------------------------------------------------------
+# the level, nested and encodings paths
+# ---------------------------------------------------------------------------
+
+def levels_setup(small: bool = False):
+    """BASELINE config 2's taxi schema made OPTIONAL (bench.py:407-423), in
+    prebuilt batches: kinds 0-2 about 2% nulls (run-dominated def levels,
+    the common case), kind 3 50% random nulls (high-entropy def levels, the
+    bit-pack route); four row groups of 262,144 rows (small: two of
+    8,192), default properties."""
+    from kpw_tpu_torch.core import (Repetition, Schema, WriterProperties,
+                                    columns_from_arrays, leaf)
+
+    rows, n_groups = (8_192, 2) if small else (TAXI_ROWS, TAXI_GROUPS)
+    types = {"int64": "int64", "int32": "int32", "float64": "double"}
+    schema = None
+    groups = []
+    for g in range(n_groups):
+        arrays = make_taxi_like(rows, seed=10 + g)
+        rng = np.random.default_rng(100 + g)
+        if schema is None:
+            schema = Schema([leaf(k, types[str(v.dtype)], Repetition.OPTIONAL)
+                             for k, v in arrays.items()])
+        groups.append(columns_from_arrays(schema, {
+            k: (v, rng.random(rows) > (0.5 if int(k[1:]) % 4 == 3 else 0.02))
+            for k, v in arrays.items()}))
+    return groups, schema, WriterProperties()
+
+
+def order_schema():
+    """``proto_to_schema(Order)`` of the repo's nested test message
+    (tests/proto_helpers.py:63-78), written out in the port's schema types:
+    order_id int64; items repeated {sku string, qty optional int32, tags
+    repeated string}; note optional string."""
+    from kpw_tpu_torch.core import ConvertedType, Field, PhysicalType, Repetition, Schema
+
+    def string(name, rep, fid):
+        return Field(name, rep, PhysicalType.BYTE_ARRAY, ConvertedType.UTF8,
+                     field_id=fid)
+
+    items = Field("items", Repetition.REPEATED, field_id=2, children=[
+        string("sku", Repetition.REQUIRED, 1),
+        Field("qty", Repetition.OPTIONAL, PhysicalType.INT32, field_id=2),
+        string("tags", Repetition.REPEATED, 3)])
+    return Schema([Field("order_id", Repetition.REQUIRED, PhysicalType.INT64,
+                         field_id=1), items,
+                   string("note", Repetition.OPTIONAL, 3)], name="Order")
+
+
+def shred_orders(schema, order_id, n_items, sku, qty):
+    """Shred Order rows into the port's columns with numpy, from each
+    order's item count: every item has a sku and a qty and no tags, no
+    order has a note.  An order without items is one slot at level 0;
+    an order's first item starts its record (rep 0), the others repeat
+    the list (rep 1)."""
+    from kpw_tpu_torch.core import ColumnBatch
+    from kpw_tpu_torch.core.bytecol import ByteColumn
+    from kpw_tpu_torch.core.pages import ColumnChunkData
+
+    n = len(order_id)
+    slots = np.maximum(n_items, 1)
+    total = int(slots.sum())
+    has = np.repeat(n_items > 0, slots)
+    rep = np.ones(total, np.int32)
+    rep[np.concatenate([[0], np.cumsum(slots)[:-1]])] = 0
+    order_id_c, sku_c, qty_c, tags_c, note_c = schema.columns
+    empty = ByteColumn(b"", np.zeros(1, np.int64))
+    return ColumnBatch([
+        ColumnChunkData(order_id_c, order_id, None, None, n),
+        ColumnChunkData(sku_c, ByteColumn.from_list(sku), has.astype(np.int32),
+                        rep, n),
+        ColumnChunkData(qty_c, qty, 2 * has.astype(np.int32), rep, n),
+        ColumnChunkData(tags_c, empty, has.astype(np.int32), rep, n),
+        ColumnChunkData(note_c, empty, np.zeros(n, np.int32), None, n)], n)
+
+
+def order_rows(rng, n: int):
+    """The config-5 rows as arrays (bench.py:1597-1606): order ids below
+    2^40, 0-3 items an order, skus from 64 values, qty 1-99."""
+    order_id = rng.integers(0, 1 << 40, n).astype(np.int64)
+    n_items = rng.integers(0, 4, n)
+    total = int(n_items.sum())
+    sku = [b"sku%d" % k for k in rng.integers(0, 64, total)]
+    qty = rng.integers(1, 100, total).astype(np.int32)
+    return order_id, n_items, sku, qty
+
+
+def nested_setup(small: bool = False):
+    """BASELINE config 5: 32,768 Order rows in four row groups of 8,192
+    (small: two of 4,096), shredded with numpy, default properties."""
+    from kpw_tpu_torch.core import WriterProperties
+
+    schema = order_schema()
+    rows, n_groups = ((4_096, 2) if small
+                      else (NESTED_ROWS // NESTED_GROUPS, NESTED_GROUPS))
+    rng = np.random.default_rng(5)
+    groups = [shred_orders(schema, *order_rows(rng, rows)) for _ in range(n_groups)]
+    return groups, schema, WriterProperties()
+
+
+def make_encodings_corpus(rows: int, seed: int = 0) -> dict:
+    """The adaptive-encodings corpus (bench.py:4928-4950): near-sorted event
+    times, per-producer sequence numbers, uniform 32-bit ids in an int64
+    leaf, a 4-value level string, 13-byte user ids and a random-walk
+    price."""
+    rng = np.random.default_rng(seed)
+    levels = [b"DEBUG", b"INFO", b"WARN", b"ERROR"]
+    return {
+        "ts": (np.int64(1_700_000_000_000)
+               + np.cumsum(rng.integers(0, 8, rows))).astype(np.int64),
+        "seq": np.cumsum(rng.integers(1, 4, rows)).astype(np.int64),
+        "rid": rng.integers(0, 2**32, rows, dtype=np.int64),
+        "level": [levels[v] for v in rng.integers(0, len(levels), rows)],
+        "uid": [b"u%012d" % v for v in rng.integers(0, 10**6, rows)],
+        "price": 100.0 + np.cumsum(rng.standard_normal(rows) * 0.25),
+    }
+
+
+def encodings_setup(small: bool = False):
+    """The encodings corpus, 400,000 rows in 8 row groups (small: 2 of
+    8,192), with the adaptive chooser's choices there as overrides (so
+    row group 1 is planned too): ts, seq, rid DELTA_BINARY_PACKED, uid
+    DELTA_LENGTH_BYTE_ARRAY, price BYTE_STREAM_SPLIT; UNCOMPRESSED."""
+    from kpw_tpu_torch.core import Schema, WriterProperties, columns_from_arrays, leaf
+
+    rows, n_groups = (2 * 8_192, 2) if small else (ENC_ROWS, ENC_BATCHES)
+    schema = Schema([leaf("ts", "int64"), leaf("seq", "int64"), leaf("rid", "int64"),
+                     leaf("level", "string"), leaf("uid", "string"),
+                     leaf("price", "double")])
+    arrays = make_encodings_corpus(rows)
+    step = rows // n_groups
+    groups = [columns_from_arrays(schema, {k: v[at:at + step] for k, v in arrays.items()})
+              for at in range(0, rows, step)]
+    props = WriterProperties(encodings={
+        "ts": "DELTA_BINARY_PACKED", "seq": "DELTA_BINARY_PACKED",
+        "rid": "DELTA_BINARY_PACKED", "uid": "DELTA_LENGTH_BYTE_ARRAY",
+        "price": "BYTE_STREAM_SPLIT"})
+    return groups, schema, props
+
+
+def write_batches(encoder, groups, schema, props, pipeline: bool = False):
+    """Write prebuilt batches one row group each; (file bytes, seconds,
+    stage busy seconds).  The pipelined writer gets row_group_size=1, so
+    each batch is handed to its pipeline as its own row group."""
+    import torch
+
+    from kpw_tpu_torch.core import ParquetFileWriter
+    from kpw_tpu_torch.ops.backend import CudaChunkEncoder
+
+    buf = io.BytesIO()
+    p = dataclasses.replace(props, row_group_size=1) if pipeline else props
+    t0 = time.perf_counter()
+    w = ParquetFileWriter(buf, schema, p, encoder=encoder, pipeline=pipeline)
+    for batch in groups:
+        w.write_batch(batch)
+        if pipeline:
+            w.maybe_flush_row_group()
+        else:
+            w.flush_row_group()
+    w.close()
+    if isinstance(encoder, CudaChunkEncoder):
+        torch.cuda.synchronize()
+    return buf.getvalue(), time.perf_counter() - t0, w.stage_busy_s
+
+
+def write_three(groups, schema, props) -> dict:
+    """The batches through ``CudaChunkEncoder`` row group by row group and
+    pipelined, and through the port's ``CpuChunkEncoder``: each file, its
+    seconds and the pipeline's stage busy seconds."""
+    from kpw_tpu_torch.core.pages import CpuChunkEncoder
+    from kpw_tpu_torch.ops.backend import CudaChunkEncoder
+
+    opts = props.encoder_options()
+    out = {}
+    out["card"], out["t_card"], _ = write_batches(CudaChunkEncoder(opts), groups,
+                                                  schema, props)
+    out["pipelined"], out["t_pipe"], out["busy"] = write_batches(
+        CudaChunkEncoder(opts), groups, schema, props, pipeline=True)
+    out["cpu"], out["t_cpu"], _ = write_batches(CpuChunkEncoder(opts), groups,
+                                                schema, props)
+    return out
+
+
+# the device routes each writer path must call, each at least once
+PATH_CALLS = {
+    "writer": ("pack_pages_multi",),
+    "levels": ("level_stats_multi", "level_runs_multi"),
+    "nested": ("level_stats_multi",),
+    "encodings": ("delta_pages_multi", "byte_stream_split_device"),
+}
+COUNTED = (("backend", "pack_pages_multi"), ("backend", "level_stats_multi"),
+           ("backend", "level_runs_multi"), ("backend", "delta_pages_multi"),
+           ("backend", "byte_stream_split_device"), ("packing", "_pad_rows"))
+# the device routes whose arguments are kept, to replay their kernels
+# against the plain versions on the main path's own inputs afterwards
+RECORDED = ("level_stats_multi", "delta_pages_multi")
+
+
+def writer_path(name: str, groups, schema, props) -> dict:
+    """One writer main path: the batches through ``ParquetFileWriter`` +
+    ``CudaChunkEncoder`` row group by row group and through the writer's
+    pipeline (whose dispatch thread runs ``launch_many`` while its
+    assembly thread runs ``assemble_many`` of the row group before), both
+    files equal byte for byte to the port's ``CpuChunkEncoder`` file, and
+    the encoder's device routes counted by call.  Returns the counts and
+    the arguments of every call of the ``RECORDED`` routes."""
+    from kpw_tpu_torch.ops import backend, packing
+
+    modules = {"backend": backend, "packing": packing}
+    calls = dict.fromkeys((f for _, f in COUNTED), 0)
+    recorded = {f: [] for f in RECORDED}
+    saved = {f: getattr(modules[m], f) for m, f in COUNTED}
+
+    def counted(f):
+        def call(*args, **kwargs):
+            calls[f] += 1
+            if f in recorded:
+                recorded[f].append((args, kwargs))
+            return saved[f](*args, **kwargs)
+        return call
+
+    for m, f in COUNTED:
+        setattr(modules[m], f, counted(f))
+    try:
+        files = write_three(groups, schema, props)
+    finally:
+        for m, f in COUNTED:
+            setattr(modules[m], f, saved[f])
+    check(files["card"] == files["cpu"], f"{name}: CudaChunkEncoder file "
+          f"({len(files['card'])} bytes) != CpuChunkEncoder file ({len(files['cpu'])} bytes)")
+    check(files["pipelined"] == files["cpu"], f"{name}: pipelined CudaChunkEncoder "
+          f"file ({len(files['pipelined'])} bytes) != CpuChunkEncoder file")
+    check(files["busy"]["assemble"] > 0, f"{name}: the pipeline ran no assembly thread")
+    check(all(calls[f] > 0 for f in PATH_CALLS[name]),
+          f"{name}: a device route of the path did not run: {calls}")
+    rows = sum(b.num_rows for b in groups)
+    say(f"[{name}] {len(schema.columns)} cols x {rows} rows in {len(groups)} row "
+        f"groups, {len(files['card'])} bytes, byte-identical; CudaChunkEncoder "
+        f"{files['t_card']:.3f} s ({rows / files['t_card']:.0f} rows/s), pipelined "
+        f"{files['t_pipe']:.3f} s ({rows / files['t_pipe']:.0f} rows/s; stage busy s "
+        + ", ".join(f"{k} {v:.3f}" for k, v in files["busy"].items())
+        + f"), CpuChunkEncoder {files['t_cpu']:.3f} s ({rows / files['t_cpu']:.0f} "
+        f"rows/s); device routes called: {calls}")
+    return calls, recorded
+
+
+def check_path_inputs(torch, name: str, recorded) -> dict:
+    """Replay the kernels of one writer path on the inputs the path gave
+    them, against their plain versions, exactly: every level planner phase-A
+    group (the stacked level batch and its page table, with the run count
+    on) through the fused pack, and every delta planner group (the ring's
+    stacked streams and page table) through the delta kernel.  Returns the
+    largest error per kernel (0)."""
+    from kpw_tpu_torch.ops import bitpack, delta, packing
+
+    err = {"bitpack": 0, "delta": 0}
+    seen = {"bitpack": [], "delta": []}
+    for (levels, ids, starts, counts, bucket, width), _ in recorded["level_stats_multi"]:
+        idx = packing.bits32(levels)
+        table = packing.page_table(ids, starts, counts, idx.device)
+        got = bitpack.pack_pages(idx, table, bucket, width, n_runs=True)
+        want = bitpack.pack_pages_plain(idx, table, bucket, width, n_runs=True)
+        e = max(max_abs_err(torch, g, w) for g, w in zip(got, want))
+        check(e == 0, f"{name}: fused pack with n_runs on the path's level batch "
+              f"{tuple(levels.shape)} bucket {bucket} width {width}: max err {e}")
+        err["bitpack"] = max(err["bitpack"], e)
+        seen["bitpack"].append(f"{tuple(levels.shape)} P {len(ids)} bucket {bucket} "
+                               f"width {width}")
+    for args, kwargs in recorded["delta_pages_multi"]:
+        streams, ids, starts, counts, bucket, bit_size = args[:6]
+        max_bits = (args[6] if len(args) > 6 else kwargs.get("max_bits")) or bit_size
+        table = packing.page_table(ids, starts, counts, streams.device)
+        got = delta.delta_pages(streams, table, bucket, bit_size, max_bits)
+        want = delta.delta_pages_plain(streams, table, bucket, bit_size, max_bits)
+        e = max(max_abs_err(torch, g, w) for g, w in zip(got, want))
+        check(e == 0, f"{name}: delta on the path's {bit_size}-bit ring streams "
+              f"{tuple(streams.shape)} bucket {bucket}: max err {e}")
+        err["delta"] = max(err["delta"], e)
+        seen["delta"].append(f"{tuple(streams.shape)} ring {bit_size} P {len(ids)} "
+                             f"bucket {bucket} max_bits {max_bits}")
+    torch.cuda.synchronize()
+    for kernel, groups in seen.items():
+        if groups:
+            say(f"[{name}] {kernel} == plain on the path's own inputs, "
+                f"{len(groups)} launch(es); distinct: {sorted(set(groups))}")
+    return err
+
+
+def group_breakdown(torch, name: str, batch, schema, props) -> None:
     """Where one CudaChunkEncoder row group's time goes: the encoder's stage
     spans (host clock) and the device profile."""
-    from kpw_tpu_torch.core import ParquetFileWriter, columns_from_arrays
+    from kpw_tpu_torch.core import ParquetFileWriter
     from kpw_tpu_torch.ops.backend import CudaChunkEncoder
     from kpw_tpu_torch.utils.tracing import StageTimer, set_tracer
 
-    batch = columns_from_arrays(schema, arrays)
     timer = StageTimer()
 
     def one_group():
@@ -734,7 +1074,7 @@ def writer_breakdown(torch, schema, props, arrays) -> None:
     finally:
         set_tracer(None)
     stages = {k: round(v["seconds"] * 1e3, 3) for k, v in timer.summary().items()}
-    say(f"[writer] one row group, profiled: stage ms {stages}; {prof}")
+    say(f"[{name}] one row group, profiled: stage ms {stages}; {prof}")
 
 
 # ---------------------------------------------------------------------------
@@ -750,10 +1090,13 @@ def main() -> None:
         import kpw_tpu_torch  # noqa: F401
     except ImportError as e:
         fail(f"cannot import kpw_tpu_torch from {root}: {e}")
+    from kpw_tpu_torch.ops.backend import CudaChunkEncoder
     from kpw_tpu_torch.ops.bitpack import pack_pages
+    from kpw_tpu_torch.ops.delta import delta_pages
     from kpw_tpu_torch.ops.rank import hist_dict, rank_pages
 
-    counters = {"bitpack": pack_pages, "hist": hist_dict, "rank": rank_pages}
+    counters = {"bitpack": pack_pages, "hist": hist_dict, "rank": rank_pages,
+                "delta": delta_pages}
 
     def drive(path: str, needs: tuple, fn, *args):
         """Run one main path with every launch count set to 0 just before it
@@ -771,24 +1114,42 @@ def main() -> None:
     phase_build()
     timer = Timer(torch)
     recs = phase_kernels(torch, timer)
-    groups, schema, props = taxi_setup()
-    writer_warmup(groups, schema, props)
-
-    cases, flag = drive("flagship", ("bitpack", "hist", "rank"),
-                        flagship_path, torch)
-    calls, writ = drive("writer", ("bitpack",), writer_path,
-                        torch, groups, schema, props)
-    check(writ["bitpack"] == calls["jobs"] and calls["pad_rows"] == 0,
-          f"writer: {writ['bitpack']} pack launches for {calls['jobs']} jobs, "
-          f"{calls['pad_rows']} padded index copies")
-    launches = {k: flag[k] + writ[k] for k in counters}
+    cases, launches = drive("flagship", ("bitpack", "hist", "rank"),
+                            flagship_path, torch)
+    paths = {"writer": (writer_setup, ("bitpack",)),
+             "levels": (levels_setup, ("bitpack",)),
+             "nested": (nested_setup, ("bitpack",)),
+             "encodings": (encodings_setup, ("delta",))}
+    inputs = {}
+    for name, (setup, needs) in paths.items():
+        inputs[name] = setup()
+        # one small run first, so that the measured one pays no one-time
+        # set-up (allocator growth, library loads); it counts no launch
+        write_batches(CudaChunkEncoder(inputs[name][2].encoder_options()),
+                      *setup(small=True))
+        (calls, recorded), got = drive(name, needs, writer_path, name,
+                                       *inputs[name])
+        # the path's kernels replayed on its own inputs, after its launches
+        # were read
+        for kernel, e in check_path_inputs(torch, name, recorded).items():
+            recs[kernel]["max_abs_err"] = max(recs[kernel]["max_abs_err"], e)
+        del recorded
+        if name == "writer":  # the fused pack: one launch a job, no padded copy
+            check(got["bitpack"] == calls["pack_pages_multi"]
+                  and calls["_pad_rows"] == 0,
+                  f"writer: {got['bitpack']} pack launches for "
+                  f"{calls['pack_pages_multi']} jobs, {calls['_pad_rows']} "
+                  "padded index copies")
+        launches = {k: launches[k] + got[k] for k in counters}
     say(f"[main path] launches: {launches}")
 
     # timing and profiles after the counted runs, so they count no launch
     flagship_timing(torch, timer, cases)
-    dictionary_routes(torch, timer, groups[0])
-    taxi_pack_jobs(torch, timer, schema, props, groups[0])
-    writer_breakdown(torch, schema, props, groups[0])
+    taxi, schema, props = inputs["writer"]
+    dictionary_routes(torch, timer, taxi[0])
+    taxi_pack_jobs(torch, timer, schema, props, taxi[0])
+    for name, (groups, schema, props) in inputs.items():
+        group_breakdown(torch, name, groups[0], schema, props)
 
     out = []
     for name, r in recs.items():

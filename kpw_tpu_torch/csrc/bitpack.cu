@@ -12,7 +12,9 @@
 // stream bit i*width + j) into bucket*width/8 bytes.  Optionally long_sum[p]
 // is the total length of the runs of >= 8 equal values among the page's
 // first `count` values: #(>= 8th element of its run) + 7 * #(exactly 8th),
-// the decision mass of the RLE-vs-bit-pack choice.  A null page table means
+// the decision mass of the RLE-vs-bit-pack choice, and optionally n_runs[p]
+// the number of run starts among those values (the page's first value always
+// starts one; no position before `start` ever does).  A null page table means
 // page p is row p, start 0, and one count for every page, read on the
 // device from count_ptr when that is not null.
 //
@@ -33,7 +35,8 @@
 // shifts.  The run statistics come from the same registers as 64-bit masks
 // (run starts, the 6 positions behind each, the one 7 behind), are summed
 // by warp shuffles and land with one integer atomicAdd a block into a
-// long_sum zeroed on the same stream (integer sums: exact in any order).
+// long_sum zeroed on the same stream (integer sums: exact in any order);
+// n_runs is the popcount of the same run-start mask, summed the same way.
 // The words go back into the padded shared memory and leave with 16-byte
 // stores.  Spans that lie wholly past the page's count store zeros only.
 
@@ -56,9 +59,10 @@ __global__ void __launch_bounds__(kThreads)
 pack_kernel(const uint32_t* __restrict__ idx, int rows, long long ld,
             const int* __restrict__ table, const int* __restrict__ count_ptr,
             int all_count, int bucket, int spans, uint8_t* __restrict__ out,
-            int* __restrict__ long_sum) {
+            int* __restrict__ long_sum, int* __restrict__ n_runs) {
   __shared__ uint32_t sm[kSmemWords];
   __shared__ int warp_sums[kThreads / 32];
+  __shared__ int warp_runs[kThreads / 32];
   const int tid = threadIdx.x;
   const long long p = blockIdx.x / spans;
   const int s0 = (int)(blockIdx.x % spans) * kSpan;
@@ -135,8 +139,8 @@ pack_kernel(const uint32_t* __restrict__ idx, int rows, long long ld,
   for (int b = 0; b < kHalo + kPerThread; ++b)
     v[b] = active ? sm[padded(kPerThread * tid + b)] : 0u;
 
-  if (long_sum) {
-    int sum = 0;
+  if (long_sum || n_runs) {
+    int sum = 0, runs = 0;
     if (active) {
       // bit b of each mask stands for page position q0 + b
       const int q0 = r0 + kPerThread * tid;
@@ -156,11 +160,20 @@ pack_kernel(const uint32_t* __restrict__ idx, int rows, long long ld,
       const uint64_t ge8 = valid & ~near & own;
       const uint64_t ex8 = ge8 & (starts << 7);
       sum = __popcll(ge8) + 7 * __popcll(ex8);
+      runs = __popcll(starts & own);
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       sum += __shfl_down_sync(0xFFFFFFFFu, sum, off);
-    if ((tid & 31) == 0) warp_sums[tid >> 5] = sum;
+    if (n_runs) {  // the same for every thread: no divergence
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        runs += __shfl_down_sync(0xFFFFFFFFu, runs, off);
+    }
+    if ((tid & 31) == 0) {
+      warp_sums[tid >> 5] = sum;
+      warp_runs[tid >> 5] = runs;
+    }
   }
 
   uint32_t words[W];
@@ -182,11 +195,15 @@ pack_kernel(const uint32_t* __restrict__ idx, int rows, long long ld,
   }
   __syncthreads();
 
-  if (long_sum && tid == 0) {
-    int total = 0;
+  if ((long_sum || n_runs) && tid == 0) {
+    int total = 0, runs = 0;
 #pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) total += warp_sums[w];
-    if (total) atomicAdd(long_sum + p, total);
+    for (int w = 0; w < kThreads / 32; ++w) {
+      total += warp_sums[w];
+      runs += warp_runs[w];
+    }
+    if (long_sum && total) atomicAdd(long_sum + p, total);
+    if (n_runs && runs) atomicAdd(n_runs + p, runs);
   }
   if (wide) {
     for (int i = tid; i < nbytes / 16; i += kThreads) {
@@ -209,21 +226,23 @@ pack_kernel(const uint32_t* __restrict__ idx, int rows, long long ld,
 // (row, start, count), or null for rows 0..P-1 from start 0 with one
 // count each (from count_ptr on the device when it is not null, else
 // all_count); out: (P,
-// bucket*width/8) bytes; long_sum: (P,) int32, zeroed here, or null for
-// no statistics.  bucket % 8 == 0, width in 1..32.  Launches on `stream`
+// bucket*width/8) bytes; long_sum, n_runs: (P,) int32, each zeroed here,
+// or null for none.  bucket % 8 == 0, width in 1..32.  Launches on `stream`
 // of `device`; returns the first cudaError_t of the memset and the launch.
 extern "C" int kpw_pack_pages(const void* idx, int rows, long long ld,
                               const void* table, const void* count_ptr,
                               int all_count, int P,
                               int bucket, int width, void* out, void* long_sum,
-                              int device, void* stream) {
+                              void* n_runs, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (bucket <= 0 || bucket % 8 || width < 1 || width > 32 || P < 0 || ld < 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (long_sum) {
-    err = cudaMemsetAsync(long_sum, 0, (size_t)P * sizeof(int), s);
+  void* const stats[2] = {long_sum, n_runs};
+  for (void* stat : stats) {
+    if (!stat) continue;
+    err = cudaMemsetAsync(stat, 0, (size_t)P * sizeof(int), s);
     if (err != cudaSuccess) return (int)err;
   }
   if (P == 0) return 0;
@@ -234,12 +253,13 @@ extern "C" int kpw_pack_pages(const void* idx, int rows, long long ld,
   const int* cp = (const int*)count_ptr;
   uint8_t* o = (uint8_t*)out;
   int* ls = (int*)long_sum;
+  int* nr = (int*)n_runs;
   switch (width) {
 #define KPW_PACK_CASE(W)                                                   \
   case W:                                                                  \
     pack_kernel<W><<<blocks, kThreads, 0, s>>>(in, rows, ld, tab, cp,     \
                                                all_count, bucket, spans,  \
-                                               o, ls);                    \
+                                               o, ls, nr);                \
     break;
     KPW_PACK_CASE(1) KPW_PACK_CASE(2) KPW_PACK_CASE(3) KPW_PACK_CASE(4)
     KPW_PACK_CASE(5) KPW_PACK_CASE(6) KPW_PACK_CASE(7) KPW_PACK_CASE(8)

@@ -42,3 +42,15 @@ def count_args(count, limit: int, device) -> tuple:
         c = count.to(device=device, dtype=torch.int32).reshape(1)
         return c, c.data_ptr(), 0
     return None, None, max(0, min(int(count), limit))
+
+
+def to_host(tensors: list) -> list:
+    """Bring tensors to the host as numpy arrays behind ONE wait: every
+    copy from the card is queued before the stream is synchronised.  CPU
+    tensors come back as views, with no copy."""
+    cuda = [t for t in tensors if t.is_cuda]
+    if not cuda:
+        return [t.numpy() for t in tensors]
+    host = [t.to("cpu", non_blocking=True) for t in tensors]
+    torch.cuda.current_stream(cuda[0].device).synchronize()
+    return [h.numpy() for h in host]

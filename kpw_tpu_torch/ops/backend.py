@@ -1,56 +1,59 @@
-"""CudaChunkEncoder — the port's device encoder backend (dictionary slice).
+"""CudaChunkEncoder — the port's device encoder backend.
 
 A drop-in for the CPU reference encoder at the pluggable boundary (the
 writer calls ``encode``/``encode_many`` or the ``launch_many`` /
 ``assemble_many`` halves).  Output bytes are identical to
-``core.pages.CpuChunkEncoder``; the dictionary path of a row group runs on
-the device in two syncs, as ``kpw_tpu/ops/backend.py:TpuChunkEncoder``
-does:
+``core.pages.CpuChunkEncoder``; a row group runs on the device in two
+syncs, as ``kpw_tpu/ops/backend.py:TpuChunkEncoder`` does:
 
-- phase A: every eligible column's dictionary build, batched
+- phase A: every rep/def level page's run statistics, each packed in the
+  same fused launch, one per (bucket, width) group (``_LevelPlanner``);
+  every delta page of a statically delta-encoded column, one launch per
+  (bucket, ring) group (``_DeltaPlanner``, the ``csrc/delta.cu`` kernel on
+  a card); every eligible column's dictionary build, batched
   (``ops.dictionary.build_dictionaries``);
-- sync 1: the unique counts, from which the dictionary-vs-plain decisions
-  follow (fixed-width plain size is k * itemsize);
-- phase B: every data page's window slice, mask, long-run sum and bit-pack,
-  one fused launch per (batch, bucket, width) job
-  (``ops.packing.pack_pages_multi``, the CUDA kernel on a card), launched
-  for all columns before anything is read;
-- sync 2: one bulk readback of the packed pages, run statistics and
-  dictionary keys;
-- sync 3 (rare): the pages whose long runs need the exact mixed RLE stream
-  fetch their index windows (``gather_index_slices``) for host RLE.
+- sync 1: the unique counts and the level statistics, from which the
+  dictionary-vs-plain and bit-pack-vs-RLE decisions follow;
+- phase B: every dictionary data page's window slice, mask, long-run sum
+  and bit-pack, one fused launch per (batch, bucket, width) job
+  (``ops.packing.pack_pages_multi``), and the run lists of the run-heavy
+  level pages (``ops.levels.level_runs_multi``), launched for all columns
+  before anything is read;
+- sync 2: one bulk readback of the packed pages, run statistics,
+  dictionary keys, level pages and delta outputs;
+- sync 3 (rare): the dictionary pages whose long runs need the exact mixed
+  RLE stream fetch their index windows (``gather_index_slices``).
 
-Everything else goes through the superclass, the port's
-``CpuChunkEncoder``: dictionary columns below ``min_device_rows``, string
-columns, and the level, delta and BYTE_STREAM_SPLIT encodings, which the
-port does not carry on the device yet.
+BYTE_STREAM_SPLIT pages, and the delta pages the planner could not see
+ahead (dictionary-rejected columns, adaptive row group 1), go through the
+device one page at a time (``_values_body``).  Everything else goes
+through the superclass, the port's ``CpuChunkEncoder``: chunks below
+``min_device_rows`` and string dictionaries, which the port does not build
+on the device yet.
 """
 
 from __future__ import annotations
+
+import struct
 
 import numpy as np
 import torch
 
 from ..core import encodings as enc
+from ..core.bytecol import ByteColumn
 from ..core.pages import (ColumnChunkData, CpuChunkEncoder, EncoderOptions,
                           PreparedRowGroup)
-from ..core.schema import PhysicalType
+from ..core.schema import Encoding, PhysicalType
 from ..core.thrift import varint_bytes
-from ..device import resolve_device
+from ..device import resolve_device, to_host
 from ..utils.tracing import stage
+from .bss import byte_stream_split_device
+from .delta import (assemble_delta_page, delta_binary_packed_device,
+                    delta_bits_bucket, delta_length_byte_array_device,
+                    delta_pages_multi)
 from .dictionary import DictBuildHandle, build_dictionaries
+from .levels import level_runs_multi, level_stats_multi
 from .packing import gather_index_slices, pack_page_host, pack_pages_multi, pad_bucket
-
-
-def _to_host(tensors: list) -> list:
-    """Bring device tensors to the host behind ONE wait: every copy is
-    queued (into pinned memory) before the stream is synchronised."""
-    cuda = [t for t in tensors if t.is_cuda]
-    if not cuda:
-        return [t.numpy() for t in tensors]
-    host = [t.to("cpu", non_blocking=True) for t in tensors]
-    torch.cuda.current_stream(cuda[0].device).synchronize()
-    return [h.numpy() for h in host]
 
 
 class _DeviceIndices:
@@ -133,6 +136,264 @@ def _hybrid_body(packed_row, long_sum: int, count: int, width: int,
     return bytes([width]) + enc.rle_hybrid_encode(idx_fallback(), width)
 
 
+class _LevelPages:
+    """One page's planned rep+def level streams as op descriptors —
+    ``("raw", part)`` (bytes or a readback view, its v1 length prefix
+    already included) and ``("runs", vals u32, lens i32, width)`` (a
+    compact run table, for an assembler's RLE-from-runs op).  ``blob()``
+    composes the bytes on the host through
+    ``core.encodings.rle_hybrid_from_runs``, the page loop's consumer."""
+
+    __slots__ = ("ops", "_blob")
+
+    def __init__(self, ops: list) -> None:
+        self.ops = ops
+        self._blob: bytes | None = None
+
+    def blob(self) -> bytes:
+        if self._blob is None:
+            out = []
+            for d in self.ops:
+                if d[0] == "raw":
+                    p = d[1]
+                    out.append(p if isinstance(p, bytes)
+                               else np.asarray(p).tobytes())
+                else:
+                    _, rv, rl, width = d
+                    payload = enc.rle_hybrid_from_runs(
+                        rv.astype(np.uint64), rl, width)
+                    out.append(struct.pack("<I", len(payload)) + payload)
+            self._blob = b"".join(out)
+        return self._blob
+
+
+class _LevelPlanner:
+    """Device encoding of every rep/def level stream of a row group
+    (BASELINE config 5), inside the planner's two syncs:
+
+    phase A (joins sync 1): one fused pack launch per (bucket, width) group
+    gives every level page's long-run mass (the oracle's bit-pack-vs-mixed
+    decision, ``core.encodings.rle_hybrid_encode``), its run count (sizing
+    the phase-B extraction) and its bit-packed bytes, which stay on the
+    card; sync 2 reads back only the rows of the pages the decision sends
+    to bit-packing;
+    phase B (joins sync 2): run-heavy pages get their compact run list
+    extracted on the device and replayed on the host through
+    ``rle_hybrid_from_runs``, byte-identical by construction; bit-packed
+    pages need no second launch.
+    """
+
+    def __init__(self, encoder: "CudaChunkEncoder", chunks) -> None:
+        streams = []  # level ndarrays, one row of the stacked batch each
+        pages = []  # (stream_row, chunk_idx, kind, a, b, width)
+        for i, chunk in enumerate(chunks):
+            col = chunk.column
+            if chunk.num_slots < encoder.min_device_rows:
+                continue
+            kinds = []
+            if col.max_rep > 0:
+                kinds.append(("rep", chunk.rep_levels, enc.bit_width(col.max_rep)))
+            if col.max_def > 0:
+                kinds.append(("def", chunk.def_levels, enc.bit_width(col.max_def)))
+            ranges = encoder._slot_ranges(chunk) if kinds else []
+            for kind, levels, width in kinds:
+                row = len(streams)
+                streams.append(np.asarray(levels))
+                pages += [(row, i, kind, a, b, width) for a, b in ranges if b > a]
+        self.empty = not pages
+        self.plans: dict[int, tuple] = {}
+        self._chunks = chunks
+        self._a_groups = []  # (pages, packed, long_sum, n_runs) on the device
+        self._b_groups = []  # (mode, pages, device outputs)
+        if self.empty:
+            return
+        # levels are 1-3 bit values: one uint8 upload (a quarter of int32),
+        # widened on the card for the kernels
+        stacked = np.zeros((len(streams), max(map(len, streams))), np.uint8)
+        for r, s in enumerate(streams):
+            stacked[r, : len(s)] = s
+        self._dev = torch.from_numpy(stacked).to(encoder.device).to(torch.int32)
+        # by width as well as bucket: rep and def streams differ in width
+        by_key: dict[tuple[int, int], list] = {}
+        for page in pages:
+            _, _, _, a, b, width = page
+            by_key.setdefault((pad_bucket(b - a), width), []).append(page)
+        for (bucket, width), rows in by_key.items():
+            long_sum, n_runs, packed = level_stats_multi(
+                self._dev, [p[0] for p in rows], [p[3] for p in rows],
+                [p[4] - p[3] for p in rows], bucket, width)
+            self._a_groups.append((rows, packed, long_sum, n_runs))
+
+    def stats_device(self) -> list:
+        """Phase A's statistics for sync 1: (long_sum, n_runs) per group."""
+        return [t for _, _, long_sum, n_runs in self._a_groups
+                for t in (long_sum, n_runs)]
+
+    def launch_phase_b(self, stats_host: list) -> None:
+        """Classify pages from phase A's statistics and launch the run
+        extraction of the run-heavy ones."""
+        slow: dict[int, list] = {}  # bucket -> [(page, n_runs)]
+        for g, (rows, packed, _, _) in enumerate(self._a_groups):
+            long_h, runs_h = stats_host[2 * g], stats_host[2 * g + 1]
+            fast = []
+            for r, page in enumerate(rows):
+                count = page[4] - page[3]
+                if int(long_h[r]) < max(8, count // 10):
+                    fast.append((r, page))
+                else:
+                    slow.setdefault(pad_bucket(count), []).append(
+                        (page, int(runs_h[r])))
+            if fast:  # phase A already packed them: fetch only their rows
+                if len(fast) < len(rows):
+                    packed = packed[torch.as_tensor([r for r, _ in fast],
+                                                    device=packed.device)]
+                self._b_groups.append(("fast", [p for _, p in fast], (packed,)))
+        for bucket, entries in slow.items():
+            run_bucket = pad_bucket(max(n for _, n in entries))
+            runs = level_runs_multi(
+                self._dev, [p[0] for p, _ in entries], [p[3] for p, _ in entries],
+                [p[4] - p[3] for p, _ in entries], bucket, run_bucket)
+            self._b_groups.append(("slow", entries, runs))
+
+    def phase_b_device(self) -> list:
+        return [t for _, _, outs in self._b_groups for t in outs]
+
+    def assemble(self, fetched: list) -> None:
+        """Fold the fetched outputs into per-(chunk, page) level plans of op
+        descriptors: bit-packed pages as [v1 length + bit-pack header,
+        packed row view] raw parts, run-heavy pages as their run tables."""
+        parts: dict[tuple[int, int, int], dict] = {}  # (i, a, b) -> kind -> ops
+        at = 0
+        for mode, items, outs in self._b_groups:
+            host = fetched[at:at + len(outs)]
+            at += len(outs)
+            if mode == "fast":
+                (packed_h,) = host
+                for r, (row, i, kind, a, b, width) in enumerate(items):
+                    groups = (b - a + 7) // 8
+                    head = varint_bytes((groups << 1) | 1)
+                    hdr = struct.pack("<I", len(head) + groups * width) + head
+                    parts.setdefault((i, a, b), {})[kind] = [
+                        ("raw", hdr), ("raw", packed_h[r, : groups * width])]
+            else:
+                vals_h, lens_h = host
+                for r, ((row, i, kind, a, b, width), n_runs) in enumerate(items):
+                    parts.setdefault((i, a, b), {})[kind] = [
+                        ("runs",
+                         np.ascontiguousarray(vals_h[r, :n_runs], np.uint32),
+                         np.ascontiguousarray(lens_h[r, :n_runs], np.int32),
+                         width)]
+        for (i, a, b), kinds in parts.items():
+            chunk = self._chunks[i]
+            col = chunk.column
+            ops: list = []
+            for kind, max_level in (("rep", col.max_rep), ("def", col.max_def)):
+                if max_level > 0:
+                    ops.extend(kinds[kind])
+            # entries carry the chunk itself so a consumer can identity-check
+            # against id() reuse
+            self.plans.setdefault(id(chunk), (chunk, {}))[1][(a, b)] = \
+                _LevelPages(ops)
+
+
+class _DeltaPlanner:
+    """Batched device delta encoding of a row group's non-dictionary pages
+    (BASELINE config 3): one ``delta_pages_multi`` launch per (bucket, ring)
+    group, launched in phase A and read back at sync 2.
+
+    Covers chunks whose encoding is known before the row group is encoded
+    (dictionary disabled or not wanted, decision pinned or forced):
+    INT32/INT64 columns pack their values, byte-array columns the length
+    vector of DELTA_LENGTH_BYTE_ARRAY (its payload is a host concat)."""
+
+    def __init__(self, encoder: "CudaChunkEncoder", chunks) -> None:
+        self.plans: dict[int, tuple] = {}  # id(chunk) -> (chunk, {(va, vb): bytes})
+        self._jobs = []  # (ring row, chunk, bit_size, pages)
+        self._groups = []
+        self.empty = True
+        opts = encoder.options
+        if not (opts.delta_fallback or opts.adaptive_encodings or opts.encodings):
+            return  # every column resolves to PLAIN: nothing here
+        streams = {32: [], 64: []}  # ring -> value streams in the ring's type
+        for chunk in chunks:
+            col = chunk.column
+            if (encoder._dictionary_viable(chunk)
+                    and encoder.chooser.dictionary_wanted(col)):
+                continue  # dictionary path (or rejected later: per-page route)
+            pt = col.leaf.physical_type
+            if encoder.chooser.peek(col) is None:
+                # adaptive and not yet pinned: decided inside encode() from
+                # row group 1, which may not have run yet; the per-page
+                # route covers it
+                continue
+            enc_kind = encoder._fallback_encoding(pt, col)
+            values = chunk.values
+            if len(values) < encoder.min_device_rows:
+                continue
+            if (enc_kind == Encoding.DELTA_BINARY_PACKED
+                    and isinstance(values, np.ndarray)):
+                bit_size = 32 if pt == PhysicalType.INT32 else 64
+                # the ring's type, as the oracle casts: an int32 array in an
+                # INT64 column sign-extends
+                stream = np.ascontiguousarray(
+                    values, np.int32 if bit_size == 32 else np.int64)
+            elif (enc_kind == Encoding.DELTA_LENGTH_BYTE_ARRAY
+                  and isinstance(values, ByteColumn)):
+                stream = np.ascontiguousarray(values.lens(), np.int32)
+                bit_size = 32  # lengths ride the 32-bit ring per the spec
+            else:
+                continue
+            pages = [(va, vb) for va, vb in encoder._page_value_ranges(chunk)
+                     if vb - va >= 2]
+            if pages:
+                self._jobs.append((len(streams[bit_size]), chunk, bit_size, pages))
+                streams[bit_size].append(stream)
+        self.empty = not self._jobs
+        if self.empty:
+            return
+        self._streams = streams
+        dev = {}
+        for ring, rows in streams.items():
+            if rows:
+                stacked = np.zeros((len(rows), max(map(len, rows))),
+                                   np.int32 if ring == 32 else np.int64)
+                for r, s in enumerate(rows):
+                    stacked[r, : len(s)] = s
+                dev[ring] = torch.from_numpy(stacked).to(encoder.device)
+        # the host-known value range of each stream bounds its miniblock
+        # widths, and so the packed slot a miniblock needs
+        row_bits = {(ring, r): delta_bits_bucket(
+            int(s.max()) - int(s.min()) if len(s) else 0, ring)
+            for ring, rows in streams.items() for r, s in enumerate(rows)}
+        by_key: dict[tuple[int, int], list] = {}
+        for row, chunk, bit_size, pages in self._jobs:
+            for va, vb in pages:
+                by_key.setdefault((pad_bucket(vb - va), bit_size), []).append(
+                    (row, chunk, va, vb))
+        for (bucket, bit_size), items in by_key.items():
+            # the group's budget is its widest member's: one launch
+            max_bits = max(row_bits[bit_size, row] for row, _, _, _ in items)
+            outs = delta_pages_multi(
+                dev[bit_size], [row for row, _, _, _ in items],
+                [va for _, _, va, _ in items],
+                [vb - va for _, _, va, vb in items], bucket, bit_size, max_bits)
+            self._groups.append((items, bit_size, outs, max_bits))
+
+    def device_outputs(self) -> list:
+        return [t for _, _, outs, _ in self._groups for t in outs]
+
+    def assemble(self, fetched: list) -> None:
+        for g, (items, bit_size, _, max_bits) in enumerate(self._groups):
+            mins, widths, packed = fetched[3 * g: 3 * g + 3]
+            for r, (row, chunk, va, vb) in enumerate(items):
+                first = int(self._streams[bit_size][row][va])  # ring type already
+                body = assemble_delta_page(first, vb - va, mins[r], widths[r],
+                                           packed[r], bit_size, max_bits=max_bits)
+                if isinstance(chunk.values, ByteColumn):
+                    body += chunk.values[va:vb].payload()
+                self.plans.setdefault(id(chunk), (chunk, {}))[1][(va, vb)] = body
+
+
 class CudaChunkEncoder(CpuChunkEncoder):
     """Byte-identical device implementation of the chunk encoder's
     dictionary path.  ``device="cuda"`` (the default) raises when no card
@@ -196,6 +457,8 @@ class CudaChunkEncoder(CpuChunkEncoder):
                 # keyed by id(chunk) — must not outlive the chunk objects;
                 # pop only THIS row group's ranges (the launch thread may
                 # already have cached the next group's)
+                self._level_plans = {}
+                self._delta_plans = {}
                 cache = getattr(self, "_ranges_cache", None)
                 if cache:
                     for c in chunks:
@@ -232,27 +495,32 @@ class CudaChunkEncoder(CpuChunkEncoder):
         return out
 
     def _launch_all(self, chunks, slots):
-        """Phase A, sync 1, phase B and sync 2.  Returns None when no chunk
+        """Phase A, sync 1, phase B and sync 2.  Returns None when nothing
         is device-eligible, else the argument pack for
         :meth:`_assemble_bodies`."""
+        lvl = _LevelPlanner(self, chunks)  # phase A launched here
+        dlt = _DeltaPlanner(self, chunks)  # delta pages launched here
         eligible = [
             (i, chunk) for i, chunk in enumerate(chunks)
             if self._dictionary_viable(chunk)
             and self.chooser.dictionary_wanted(chunk.column)
             and self._device_eligible(chunk.values, chunk.column.leaf.physical_type)
         ]
-        if not eligible:
+        if not eligible and lvl.empty and dlt.empty:
             return None
         opts = self.options
-        handles = build_dictionaries([chunk.values for _, chunk in eligible],
-                                     self.device)
+        handles = (build_dictionaries([chunk.values for _, chunk in eligible],
+                                      self.device) if eligible else [])
         batches: list = []
         for batch, _ in handles:
             if batch not in batches:
                 batches.append(batch)
-        for b, kv in zip(batches, _to_host(  # sync 1: unique counts
-                [b.counts_device() for b in batches])):
+        fetched = to_host(  # sync 1: unique counts + level statistics
+            [b.counts_device() for b in batches] + lvl.stats_device())
+        for b, kv in zip(batches, fetched):
             b._k_host = kv
+        if not lvl.empty:
+            lvl.launch_phase_b(fetched[len(batches):])
 
         col_plans = []
         jobs: dict = {}  # (batch_id, bucket, width) -> (batch, [page rows])
@@ -288,17 +556,32 @@ class CudaChunkEncoder(CpuChunkEncoder):
         table_batches = [b for b in batches if id(b) in accepted_kmax]
         tables_dev = [b.key_tables_device(pad_bucket(accepted_kmax[id(b)]))
                       for b in table_batches]
-        fetched = _to_host(group_dev + tables_dev)  # sync 2: bulk
+        lvl_dev = lvl.phase_b_device() if not lvl.empty else []
+        dlt_dev = dlt.device_outputs()
+        fetched = to_host(group_dev + tables_dev + lvl_dev + dlt_dev)  # sync 2
         groups_host = list(zip(fetched[0:len(group_dev):2],
                                fetched[1:len(group_dev):2]))
+        at = len(group_dev)
         tables_host = {id(b): t for b, t in
-                       zip(table_batches, fetched[len(group_dev):])}
-        return col_plans, group_meta, groups_host, tables_host
+                       zip(table_batches, fetched[at:at + len(tables_dev)])}
+        at += len(tables_dev)
+        lvl_host = fetched[at:at + len(lvl_dev)]
+        dlt_host = fetched[at + len(lvl_dev):]
+        return (lvl, dlt, col_plans, group_meta, groups_host, tables_host,
+                lvl_host, dlt_host)
 
-    def _assemble_bodies(self, chunks, slots, col_plans, group_meta,
-                         groups_host, tables_host):
+    def _assemble_bodies(self, chunks, slots, lvl, dlt, col_plans, group_meta,
+                         groups_host, tables_host, lvl_host, dlt_host):
         """Post-fetch host body assembly, including the rare sync-3
-        long-run gather; installs (dict_values, _PageBodies) in the slots."""
+        long-run gather: installs the level and delta plans for this row
+        group's ``encode`` calls and (dict_values, _PageBodies) in the
+        slots."""
+        if not lvl.empty:
+            lvl.assemble(lvl_host)
+            self._level_plans = lvl.plans
+        if not dlt.empty:
+            dlt.assemble(dlt_host)
+            self._delta_plans = dlt.plans
         bodies_by_slot: dict[int, _PageBodies] = {}
 
         def bodies_for(i: int, n: int) -> _PageBodies:
@@ -334,7 +617,7 @@ class CudaChunkEncoder(CpuChunkEncoder):
                     batch.indices, [r[1] for r in rows], [r[2] for r in rows],
                     bucket))
                 fb_meta.append(rows)
-            for rows, sl in zip(fb_meta, _to_host(fb_dev)):
+            for rows, sl in zip(fb_meta, to_host(fb_dev)):
                 sl = sl.view(np.uint32)
                 for row, (i, j, va, vb, count, width) in enumerate(rows):
                     body = bytes([width]) + enc.rle_hybrid_encode(
@@ -357,6 +640,66 @@ class CudaChunkEncoder(CpuChunkEncoder):
         return slots
 
     # -- primitive overrides ----------------------------------------------
+    def _values_body(self, values, pt: int, encoding: int) -> bytes:
+        """Delta and BYTE_STREAM_SPLIT bodies of large chunks on the device,
+        one page at a time: the route of pages the planner could not see
+        ahead (dictionary-rejected columns, adaptive row group 1); small
+        chunks and everything else take the host path."""
+        if len(values) >= self.min_device_rows:
+            if (encoding == Encoding.DELTA_BINARY_PACKED
+                    and isinstance(values, np.ndarray)):
+                bit_size = 32 if pt == PhysicalType.INT32 else 64
+                return delta_binary_packed_device(values, bit_size, self.device)
+            if encoding == Encoding.DELTA_LENGTH_BYTE_ARRAY:
+                return delta_length_byte_array_device(values, self.device)
+            if (encoding == Encoding.BYTE_STREAM_SPLIT
+                    and pt in enc._PLAIN_DTYPES):
+                # the PLAIN dtype first, as the host route: the transpose
+                # must see the on-wire value bytes
+                return byte_stream_split_device(
+                    np.ascontiguousarray(values, enc._PLAIN_DTYPES[pt]),
+                    self.device)
+        return super()._values_body(values, pt, encoding)
+
+    @staticmethod
+    def _plan_entry(plans, chunk, key):
+        """The one id()-keyed plan lookup, with its identity re-check."""
+        if plans:
+            hit = plans.get(id(chunk))
+            if hit is not None and hit[0] is chunk:  # guard against id() reuse
+                return hit[1].get(key)
+        return None
+
+    def _values_page_body(self, chunk, va: int, vb: int, pt: int,
+                          encoding: int) -> bytes:
+        """The planner's delta body of a page, else the per-page route.
+        (The superclass's ``_values_page_parts`` comes through here.)"""
+        body = self._plan_entry(getattr(self, "_delta_plans", None), chunk,
+                                (va, vb))
+        if body is not None:
+            return body
+        return super()._values_page_body(chunk, va, vb, pt, encoding)
+
+    def _planned_level_entry(self, chunk, a: int, b: int):
+        """The planner's :class:`_LevelPages` entry for slots [a, b), or
+        None."""
+        return self._plan_entry(getattr(self, "_level_plans", None), chunk,
+                                (a, b))
+
+    def _planned_levels_blob(self, chunk, a: int, b: int) -> bytes | None:
+        entry = self._planned_level_entry(chunk, a, b)
+        return entry.blob() if entry is not None else None
+
+    def _planned_level_ops(self, chunk, a: int, b: int) -> list | None:
+        entry = self._planned_level_entry(chunk, a, b)
+        return entry.ops if entry is not None else None
+
+    def _levels_page_blob(self, chunk, a: int, b: int) -> bytes:
+        body = self._planned_levels_blob(chunk, a, b)
+        if body is not None:
+            return body
+        return super()._levels_page_blob(chunk, a, b)
+
     def _dictionary_build(self, values, pt: int):
         if not self._device_eligible(values, pt):
             return super()._dictionary_build(values, pt)

@@ -13,8 +13,10 @@ bit-packs it and measures its long-run mass, in one launch of
 ``csrc/bitpack.cu`` on a CUDA tensor (see the source for its bound and
 design) or through :func:`pack_pages_plain` on a CPU tensor.  It replaces
 the TPU kernel ``kpw_tpu/ops/pallas_bitpack.py:_bitpack_kernel`` and the
-slice, mask and run statistics the JAX package runs around it.
-:func:`bitpack_pages` is the case of an identity table without statistics.
+slice, mask and run statistics the JAX package runs around it; on request
+it also counts each page's runs (the level planner's sizing of its run
+extraction).  :func:`bitpack_pages` is the case of an identity table
+without statistics.
 """
 
 from __future__ import annotations
@@ -35,8 +37,8 @@ def _kernel():
         _fn = _build.function("bitpack", "kpw_pack_pages", [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p])
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p])
     return _fn
 
 
@@ -56,7 +58,7 @@ def _check(idx: torch.Tensor, table, bucket: int, width: int) -> None:
 
 
 def pack_pages(idx: torch.Tensor, table: torch.Tensor | None, bucket: int,
-               width: int, stats: bool = True, count=None):
+               width: int, stats: bool = True, count=None, n_runs: bool = False):
     """Pack P page windows of ``idx`` (rows, ld) int32 in one launch.
 
     Page p is described by ``table[p] = (row, start, count)`` (int32, on
@@ -64,14 +66,15 @@ def pack_pages(idx: torch.Tensor, table: torch.Tensor | None, bucket: int,
     ``i < count`` and 0 past ``count`` or past ``ld``.  ``table=None`` means
     page p is row p, start 0, with ``count`` values (an int or a 0-d
     tensor; default ``bucket``), and needs no table on the device.  Returns
-    (packed (P,
-    bucket*width//8) uint8, long_sum (P,) int32 or None when ``stats`` is
-    false), long_sum being the total length of runs >= 8 among each page's
-    first ``count`` values.  Bits at or above ``width`` are ignored."""
+    (packed (P, bucket*width//8) uint8, long_sum, n_runs): long_sum (P,)
+    int32 is the total length of runs >= 8 among each page's first
+    ``count`` values, n_runs (P,) int32 the number of runs among them; each
+    statistic is None unless asked for (``stats``, ``n_runs``).  Bits at or
+    above ``width`` are ignored."""
     _check(idx, table, bucket, width)
     count = bucket if count is None else count
     if idx.device.type == "cpu":
-        return pack_pages_plain(idx, table, bucket, width, stats, count)
+        return pack_pages_plain(idx, table, bucket, width, stats, count, n_runs)
     if idx.device.type != "cuda":
         raise ValueError(f"unsupported device {idx.device}")
     kernel = _kernel()
@@ -83,20 +86,22 @@ def pack_pages(idx: torch.Tensor, table: torch.Tensor | None, bucket: int,
     rows, ld = idx.shape
     packed = torch.empty((P, bucket * width // 8), dtype=torch.uint8,
                          device=idx.device)
-    long_sum = (torch.empty(P, dtype=torch.int32, device=idx.device)
-                if stats else None)
+    long_sum, runs = (torch.empty(P, dtype=torch.int32, device=idx.device)
+                      if want else None for want in (stats, n_runs))
+    out = (packed, long_sum, runs)
     if P == 0:  # nothing to launch
-        return packed, long_sum
+        return out
     _keep, count_ptr, count_val = count_args(count, bucket, idx.device)
     device, stream = cuda_launch_args(idx)
     rc = kernel(idx.data_ptr(), rows, ld,
                 None if table is None else table.data_ptr(), count_ptr, count_val,
                 P, bucket, width, packed.data_ptr(),
-                None if long_sum is None else long_sum.data_ptr(), device, stream)
+                None if long_sum is None else long_sum.data_ptr(),
+                None if runs is None else runs.data_ptr(), device, stream)
     if rc:
         raise RuntimeError(f"kpw_pack_pages launch failed: CUDA error {rc}")
     pack_pages.launches += 1
-    return packed, long_sum
+    return out
 
 
 pack_pages.launches = 0
@@ -154,7 +159,7 @@ def window_slice(idx: torch.Tensor, table: torch.Tensor | None, bucket: int,
     return torch.where(valid & (col < ld), page, 0), valid
 
 
-def _newrun(v: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+def newrun(v: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """THE run-start mask along the last axis — where runs begin, shared by
     every run statistic so run semantics match ``core.encodings._runs``."""
     first = torch.ones_like(valid[..., :1])
@@ -170,24 +175,32 @@ def run_long_stats(v: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     exactly-8th element (a >=8th element whose run starts exactly 7 back),
     so ``long_sum = #(>=8th) + 7 * #(exactly 8th)`` — shifts of the
     run-start mask, no scan."""
-    newrun = _newrun(v, valid)
+    starts = newrun(v, valid)
 
     def back(x, k):  # x[..., q - k], False at the window head
         return torch.cat([torch.zeros_like(x[..., :k]), x[..., :-k]], dim=-1)
 
-    near_start = newrun
+    near_start = starts
     for k in range(1, 7):
-        near_start = near_start | back(newrun, k)
+        near_start = near_start | back(starts, k)
     ge8 = valid & ~near_start
-    ex8 = ge8 & back(newrun, 7)
+    ex8 = ge8 & back(starts, 7)
     return ge8.sum(-1, dtype=torch.int32) + 7 * ex8.sum(-1, dtype=torch.int32)
 
 
+def run_stats(v: torch.Tensor, valid: torch.Tensor):
+    """Scan-free run statistics of masked windows along the last axis:
+    (long_sum, n_runs) — :func:`run_long_stats` and the number of runs."""
+    return run_long_stats(v, valid), newrun(v, valid).sum(-1, dtype=torch.int32)
+
+
 def pack_pages_plain(idx: torch.Tensor, table: torch.Tensor | None, bucket: int,
-                     width: int, stats: bool = True, count=None):
+                     width: int, stats: bool = True, count=None,
+                     n_runs: bool = False):
     """:func:`pack_pages` in plain PyTorch on any device: the window slice,
     the bit-pack and the run statistics as separate tensor ops."""
     _check(idx, table, bucket, width)
     v, valid = window_slice(idx, table, bucket, count)
     packed = bitpack_pages_plain(v, width)
-    return packed, (run_long_stats(v, valid) if stats else None)
+    return (packed, run_long_stats(v, valid) if stats else None,
+            newrun(v, valid).sum(-1, dtype=torch.int32) if n_runs else None)

@@ -6,7 +6,9 @@ work itself — cutting each page out of a (C, N) index batch, zeroing it
 past its count, measuring the long-run mass that decides RLE against
 bit-packing (``core.encodings.rle_hybrid_encode``) and the bit-pack — is
 one launch of the fused kernel behind :func:`ops.bitpack.pack_pages`; this
-module builds its page table and serves the encoder's callers.
+module builds its page table and serves the encoder's callers.  It also
+holds the run helpers of the level path (``ops.levels``): run labelling of
+masked windows and the scatter compaction of the run ends.
 
 Conventions of the port: 32-bit values travel as int32 bit patterns (the
 kernels read them as ``uint32_t``); where unsigned order or arithmetic
@@ -21,7 +23,7 @@ import math
 import numpy as np
 import torch
 
-from .bitpack import pack_pages
+from .bitpack import newrun, pack_pages, window_slice
 
 
 def bits32(t: torch.Tensor) -> torch.Tensor:
@@ -60,7 +62,19 @@ def pack_pages_multi(idx_all: torch.Tensor, col_ids, starts, counts,
     long_sum is the total length of runs >= 8 in each page (a page has a
     long run iff long_sum > 0)."""
     table = page_table(col_ids, starts, counts, idx_all.device)
-    return pack_pages(bits32(idx_all), table, bucket, width)
+    return pack_pages(bits32(idx_all), table, bucket, width)[:2]
+
+
+def pack_pages_only(idx_all: torch.Tensor, col_ids, starts, counts,
+                    bucket: int, width: int) -> torch.Tensor:
+    """:func:`pack_pages_multi` without the run statistics, for pages whose
+    RLE-vs-bitpack decision is already known: the same fused launch with
+    ``long_sum`` off.  Returns packed (P, bucket*width//8) uint8.  Kept for
+    parity with the JAX package's phase-B pack; the encoder does not call
+    it, because the level planner's phase-A launch already packed those
+    pages."""
+    table = page_table(col_ids, starts, counts, idx_all.device)
+    return pack_pages(bits32(idx_all), table, bucket, width, stats=False)[0]
 
 
 def pack_page(idx_full: torch.Tensor, start: int, count: int, bucket: int,
@@ -71,8 +85,8 @@ def pack_page(idx_full: torch.Tensor, start: int, count: int, bucket: int,
     (bucket*width//8,) uint8, long_sum, any_long) as tensors on
     ``idx_full``'s device."""
     table = page_table([0], [start], [count], idx_full.device)
-    packed, long_sum = pack_pages(bits32(idx_full).reshape(1, -1), table,
-                                  bucket, width)
+    packed, long_sum, _ = pack_pages(bits32(idx_full).reshape(1, -1), table,
+                                     bucket, width)
     return packed[0], long_sum[0], long_sum[0] > 0
 
 
@@ -101,3 +115,39 @@ def gather_index_slices(idx_all: torch.Tensor, col_ids, starts,
     rows = torch.as_tensor(np.asarray(col_ids, np.int64), device=dev)
     first = torch.as_tensor(np.asarray(starts, np.int64), device=dev)
     return _pad_rows(idx_all, bucket)[rows[:, None], first[:, None] + pos]
+
+
+# ---------------------------------------------------------------------------
+# run helpers: plain tensor functions along the last axis, on any device
+# ---------------------------------------------------------------------------
+
+def run_scan(v: torch.Tensor, valid: torch.Tensor):
+    """Run labelling of masked windows: (newrun, run_id, is_end).
+    ``run_id`` numbers each position's run from 0; ``is_end`` marks the
+    last valid position of each run."""
+    starts = newrun(v, valid)
+    run_id = starts.to(torch.int32).cumsum(-1, dtype=torch.int32) - 1
+    nxt_break = torch.cat([starts[..., 1:] | ~valid[..., 1:],
+                           torch.ones_like(valid[..., :1])], dim=-1)
+    return starts, run_id, valid & nxt_break
+
+
+def window_run_scan(levels: torch.Tensor, table: torch.Tensor, bucket: int):
+    """Cut the windows of a (P, 3) page table out of ``levels`` (rows, ld)
+    int32 as :func:`ops.bitpack.window_slice` does and label their runs.
+    Returns (v (P, bucket) int32, run_id, is_end)."""
+    v, valid = window_slice(levels, table, bucket)
+    _, run_id, is_end = run_scan(v, valid)
+    return v, run_id, is_end
+
+
+def compact_by_rank(rank: torch.Tensor, values: tuple, out_size: int) -> tuple:
+    """Place each tensor of ``values`` at slot ``rank[..., i]`` along the
+    last axis for ranks < ``out_size``; other ranks are dropped and
+    unfilled slots are zero.  One scatter per value: the sort routes and
+    static value-bit packing of the JAX package's version are choices for
+    the TPU, whose vector units take scatters badly, and are not carried
+    over."""
+    safe = torch.clamp(rank, max=out_size).to(torch.int64)
+    return tuple(v.new_zeros(v.shape[:-1] + (out_size + 1,)).scatter_(-1, safe, v)
+                 [..., :out_size] for v in values)

@@ -136,11 +136,11 @@ def test_fused_pack_plain_matches_jax(monkeypatch, pallas, width):
     want_packed, want_long = jpacking.pack_pages_multi(
         jnp.asarray(vals), jnp.asarray(table[:, 0]), jnp.asarray(table[:, 1]),
         jnp.asarray(table[:, 2]), 256, width)
-    got_packed, got_long = pack_pages(_t(vals), torch.from_numpy(table), 256, width)
+    got_packed, got_long, _ = pack_pages(_t(vals), torch.from_numpy(table), 256, width)
     np.testing.assert_array_equal(got_packed.numpy(), np.asarray(want_packed))
     np.testing.assert_array_equal(got_long.numpy(), np.asarray(want_long))
     # bits above the width are ignored: the unmasked batch packs the same
-    again, _ = pack_pages(_t(idx), torch.from_numpy(table), 256, width)
+    again = pack_pages(_t(idx), torch.from_numpy(table), 256, width)[0]
     np.testing.assert_array_equal(again.numpy(), np.asarray(want_packed))
 
 
@@ -149,8 +149,8 @@ def test_fused_pack_identity_table_is_bitpack():
     plain bit-pack of the rows; no statistics asked, none returned."""
     rng = np.random.default_rng(2)
     pages = _t(rng.integers(0, 1 << 11, (3, 512)).astype(np.uint32))
-    packed, long_sum = pack_pages(pages, None, 512, 11, stats=False)
-    assert long_sum is None
+    packed, long_sum, n_runs = pack_pages(pages, None, 512, 11, stats=False)
+    assert long_sum is None and n_runs is None
     assert torch.equal(packed, bitpack_pages_plain(pages, 11))
     assert torch.equal(pack_pages_plain(pages, None, 512, 11)[0], packed)
 

@@ -68,9 +68,9 @@ def test_fused_pack_kernel_equals_plain(card, width):
     idx = _t(vals, card)
     tab = torch.from_numpy(table).to(card)
     before = pack_pages.launches
-    got_p, got_l = pack_pages(idx, tab, bucket, width)
+    got_p, got_l, _ = pack_pages(idx, tab, bucket, width)
     assert pack_pages.launches == before + 1
-    want_p, want_l = pack_pages_plain(idx, tab, bucket, width)
+    want_p, want_l, _ = pack_pages_plain(idx, tab, bucket, width)
     assert torch.equal(got_p, want_p)
     assert torch.equal(got_l, want_l)
     # no table: rows 0..3 from start 0, one count for all, by value and
@@ -84,6 +84,80 @@ def test_fused_pack_kernel_equals_plain(card, width):
     empty = pack_pages(idx, tab[:0], bucket, width)
     assert empty[0].shape == (0, bucket * width // 8) and empty[1].shape == (0,)
     assert pack_pages.launches == before
+
+
+@pytest.mark.parametrize("width", [1, 2, 3, 13, 32])
+def test_pack_kernel_n_runs_equals_plain(card, width):
+    """The optional run count beside long_sum, on unaligned, ragged and
+    past-ld windows; with n_runs off the outputs are the same as before."""
+    from kpw_tpu_torch.ops.bitpack import pack_pages, pack_pages_plain
+
+    rng = np.random.default_rng(200 + width)
+    C, ld, bucket = 3, 20_011, 8_192
+    vals = np.zeros((C, ld), np.uint32)
+    for c in range(C):
+        pos = 0
+        while pos < ld:
+            n = int(rng.integers(1, 3 + 20 * c))
+            vals[c, pos:pos + n] = rng.integers(0, 1 << width, dtype=np.uint64)
+            pos += n
+    table = torch.tensor([
+        [0, 0, 8_192], [1, 3, 8_000], [2, 5, 0], [0, 7, 1], [1, 4090, 9],
+        [2, 17, 4104], [0, 15_000, 8_192], [1, 20_011, 50], [2, 4093, 8_191]],
+        dtype=torch.int32, device=card)
+    idx = _t(vals, card)
+    got = pack_pages(idx, table, bucket, width, n_runs=True)
+    want = pack_pages_plain(idx, table, bucket, width, n_runs=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    got = pack_pages(idx, table, bucket, width, stats=False, n_runs=True)
+    assert got[1] is None and torch.equal(got[2], want[2])
+    packed, long_sum, runs = pack_pages(idx, table, bucket, width)
+    assert torch.equal(packed, want[0]) and torch.equal(long_sum, want[1])
+    assert runs is None
+
+
+def _delta_streams(rng, bit_size):
+    """Rows for the delta kernel: wraparound edges, one per width bucket,
+    zero deltas, a random walk."""
+    itype = np.int64 if bit_size == 64 else np.int32
+    info = np.iinfo(itype)
+    ld = 1_500
+    rows = [np.resize(np.array([0, info.max, info.min, 17, -1, info.max,
+                                info.min + 1], itype), ld),
+            np.full(ld, -5, itype),
+            np.cumsum(rng.integers(0, 9, ld)).astype(itype)]
+    for bits in (5, 12, 20, 28, 40, 60):
+        if bits < bit_size:
+            rows.append((rng.integers(0, 1 << bits, ld) - (1 << (bits - 1))).astype(itype))
+    rows.append(rng.integers(info.min, info.max, ld, dtype=itype, endpoint=True))
+    return np.stack(rows)
+
+
+@pytest.mark.parametrize("bit_size", [32, 64])
+@pytest.mark.parametrize("max_bits", [8, 16, 24, 32, 48, 64])
+def test_delta_kernel_equals_plain(card, bit_size, max_bits):
+    """Both rings, every width bucket (widths above the budget are cut
+    the same way), counts 0/1/2/127/128/129 and ragged, starts past the
+    row's end."""
+    from kpw_tpu_torch.ops.delta import delta_pages, delta_pages_plain
+
+    if max_bits > bit_size:
+        pytest.skip("the 32-bit ring has no budget above 32")
+    rng = np.random.default_rng(bit_size + max_bits)
+    streams = torch.from_numpy(_delta_streams(rng, bit_size)).to(card)
+    rows, ld = streams.shape
+    table = torch.tensor(
+        [[r, s, c] for r in range(rows)
+         for s, c in ((0, 1024), (1, 2), (3, 127), (5, 128), (7, 129), (11, 0),
+                      (13, 1), (700, 1000), (1490, 300), (ld, 5))],
+        dtype=torch.int32, device=card)
+    before = delta_pages.launches
+    got = delta_pages(streams, table, 1024, bit_size, max_bits)
+    assert delta_pages.launches == before + 1
+    want = delta_pages_plain(streams, table, 1024, bit_size, max_bits)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("C", [5, 64])
@@ -181,3 +255,29 @@ def test_writer_card_equals_cpu_encoder(card, pipeline):
 
     assert write(CudaChunkEncoder(props.encoder_options()), pipeline) == \
         write(CpuChunkEncoder(props.encoder_options()))
+
+
+@pytest.mark.parametrize("path", ["writer", "levels", "nested", "encodings"])
+def test_writer_paths_card_equal_cpu_encoder(card, path):
+    """The smoke run's writer paths at a reduced depth: the card's file
+    equals the port's CpuChunkEncoder file, row group by row group and
+    through the pipeline, and the path launched its kernels."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    from kpw_tpu_torch.ops.bitpack import pack_pages
+    from kpw_tpu_torch.ops.delta import delta_pages
+
+    setup = {"writer": chip_smoke.writer_setup, "levels": chip_smoke.levels_setup,
+             "nested": chip_smoke.nested_setup,
+             "encodings": chip_smoke.encodings_setup}[path]
+    groups, schema, props = setup(small=True)
+    before = (pack_pages.launches, delta_pages.launches)
+    files = chip_smoke.write_three(groups, schema, props)
+    assert files["card"] == files["cpu"] and files["pipelined"] == files["cpu"]
+    if path == "encodings":
+        assert delta_pages.launches > before[1]
+    else:
+        assert pack_pages.launches > before[0]

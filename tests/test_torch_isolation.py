@@ -22,7 +22,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 import kpw_tpu_torch.core as T
 from kpw_tpu_torch.entry import entry
-from kpw_tpu_torch.ops import _build, backend, bitpack, dictionary, rank
+from kpw_tpu_torch.ops import _build, backend, bitpack, delta, dictionary, rank
 from kpw_tpu_torch.parallel.sharded import encode_step_single
 
 # Small inputs: more intra-op threads would only contend for the CPU
@@ -68,6 +68,8 @@ def test_port_imports_without_jax_or_kpw_tpu():
     count, names = out.stdout.split(None, 1)
     for mod in ("kpw_tpu_torch.ops.backend", "kpw_tpu_torch.ops.bitpack",
                 "kpw_tpu_torch.ops.rank", "kpw_tpu_torch.ops.dictionary",
+                "kpw_tpu_torch.ops.levels", "kpw_tpu_torch.ops.delta",
+                "kpw_tpu_torch.ops.bss", "kpw_tpu_torch.ops.packing",
                 "kpw_tpu_torch.parallel.sharded", "kpw_tpu_torch.entry",
                 "kpw_tpu_torch.core.writer", "kpw_tpu_torch.utils.tracing"):
         assert mod in names.split()
@@ -107,6 +109,8 @@ def test_wrappers_refuse_other_devices():
         rank.hist_dict(pages, 200, 8)
     with pytest.raises(ValueError, match="unsupported device"):
         rank.rank_pages(pages, rt)
+    with pytest.raises(ValueError, match="unsupported device"):
+        delta.delta_pages(pages.to(torch.int64), rt[0, :3, :3], 256, 64, 8)
 
 
 def _wrapper_cases():
@@ -125,6 +129,13 @@ def _wrapper_cases():
     def counted():
         return (torch.empty((2, 256), dtype=torch.int32, device="cuda"), 200, 8)
 
+    def counted_runs():
+        return windows() + (True, None, True)  # stats, count, n_runs
+
+    def streams():
+        return (torch.empty((2, 300), dtype=torch.int64, device="cuda"),
+                torch.empty((3, 3), dtype=torch.int32, device="cuda"), 256, 64, 8)
+
     def ranked():
         return (torch.empty((2, 256), dtype=torch.int32, device="cuda"),
                 torch.empty((2, 8, 64), dtype=torch.int32, device="cuda"))
@@ -134,13 +145,18 @@ def _wrapper_cases():
     return {
         "bitpack": (bitpack, "bitpack_pages", "pack_pages", pack_plain, pages),
         "pack": (bitpack, "pack_pages", "pack_pages", pack_plain, windows),
+        "pack_n_runs": (bitpack, "pack_pages", "pack_pages", pack_plain,
+                        counted_runs),
+        "delta": (delta, "delta_pages", "delta_pages", ("delta_pages_plain",),
+                  streams),
         "hist": (rank, "hist_pages", "hist_dict", hist_plain, values),
         "hist_dict": (rank, "hist_dict", "hist_dict", hist_plain, counted),
         "rank": (rank, "rank_pages", "rank_pages", ("rank_pages_plain",), ranked),
     }
 
 
-@pytest.mark.parametrize("case", ["bitpack", "pack", "hist", "hist_dict", "rank"])
+@pytest.mark.parametrize("case", ["bitpack", "pack", "pack_n_runs", "hist",
+                                  "hist_dict", "rank", "delta"])
 def test_wrappers_raise_on_cuda_tensors_without_the_toolkit(monkeypatch, case):
     """A CUDA tensor (a fake one: this PyTorch build cannot make real ones)
     sends each wrapper to its kernel, whose build raises for want of
@@ -163,6 +179,7 @@ def test_wrappers_raise_on_cuda_tensors_without_the_toolkit(monkeypatch, case):
     monkeypatch.setattr(_build, "_libs", {})
     monkeypatch.setattr(bitpack, "_fn", None)
     monkeypatch.setattr(rank, "_fns", {})
+    monkeypatch.setattr(delta, "_fn", None)
     monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
     with FakeTensorMode():
         args = inputs()
@@ -190,7 +207,8 @@ def test_device_paths_refuse_a_missing_card():
             _build.function("bitpack", "kpw_pack_pages", [])
 
 
-_COUNTING = (bitpack.pack_pages, rank.hist_dict, rank.rank_pages)
+_COUNTING = (bitpack.pack_pages, rank.hist_dict, rank.rank_pages,
+             delta.delta_pages)
 
 
 def test_cpu_tensors_launch_no_kernel(monkeypatch):
@@ -213,4 +231,18 @@ def test_cpu_tensors_launch_no_kernel(monkeypatch):
         "a": rng.integers(0, 50, 5000).astype(np.int64),
         "b": rng.choice(rng.normal(size=9), 5000)}))
     w.close()
-    assert tuple(f.launches for f in _COUNTING) == (0, 0, 0)
+    # levels, delta and BYTE_STREAM_SPLIT pages on the CPU too
+    schema = T.Schema([T.leaf("o", "int64", T.Repetition.OPTIONAL),
+                       T.leaf("t", "int64"), T.leaf("f", "double")])
+    props = T.WriterProperties(encodings={"t": "DELTA_BINARY_PACKED",
+                                          "f": "BYTE_STREAM_SPLIT"})
+    w = T.ParquetFileWriter(io.BytesIO(), schema, props,
+                            encoder=backend.CudaChunkEncoder(
+                                props.encoder_options(), min_device_rows=1,
+                                device="cpu"))
+    w.write_batch(T.columns_from_arrays(schema, {
+        "o": (rng.integers(0, 50, 5000).astype(np.int64), rng.random(5000) > 0.5),
+        "t": np.cumsum(rng.integers(0, 9, 5000)).astype(np.int64),
+        "f": rng.normal(size=5000)}))
+    w.close()
+    assert tuple(f.launches for f in _COUNTING) == (0, 0, 0, 0)
