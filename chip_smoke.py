@@ -9,7 +9,13 @@ toolkit:
 Phases, in order; any failed check exits non-zero before the result lines:
 
 1. card  — the card's name and power limit (nvidia-smi) and PyTorch's name;
-2. build — compile the port's CUDA kernels from ``kpw_tpu_torch/csrc``;
+2. build — compile the port's CUDA kernels from ``kpw_tpu_torch/csrc`` and,
+   beside them, its native host library and page assembler from
+   ``kpw_tpu_torch/native/src`` (g++); then the native phase: ``has_zstd``,
+   the assembler's ``OP_KINDS`` (must be 5), whether libsnappy was found,
+   the library's Snappy round trip, ``dict_build_bytes`` against
+   ``core.encodings.dictionary_build`` and ``rle_hybrid`` against
+   ``core.encodings.rle_hybrid_encode``;
 3. kernels — every kernel against its plain PyTorch version on the card,
    element for element (the fused pack on unaligned, ragged, past-the-end
    windows at every width, with and without its run count; the hist +
@@ -26,30 +32,40 @@ Phases, in order; any failed check exits non-zero before the result lines:
 4. flagship — ``entry()`` and ``encode_step_single`` at 64 x 65,536 on the
    sort route and both bounded routes, each run once and equal to the same
    step run on the CPU (plain versions);
-5. writers — four files through ``ParquetFileWriter`` + ``CudaChunkEncoder``,
-   each row group by row group and through the writer's pipeline, each
-   equal byte for byte to the one the port's ``CpuChunkEncoder`` writes:
-   ``writer``, a taxi-shaped 64-column table, 1,048,576 rows in four row
-   groups; ``levels``, the same table with optional columns (rep/def level
-   pages); ``nested``, BASELINE config 5's 32,768 orders shredded with
-   numpy (rep levels); ``encodings``, the adaptive-encodings corpus,
-   400,000 rows, with delta and BYTE_STREAM_SPLIT overrides; after each
-   path its kernels are replayed on the inputs it gave them (every level
-   batch and page table through the pack with its run count, every delta
-   group of either ring) against their plain versions, exactly;
+5. writers — five tables through ``ParquetFileWriter`` + ``CudaChunkEncoder``,
+   each row group by row group and through the writer's pipeline, and
+   through the port's ``NativeChunkEncoder`` (host C++), each of the four
+   files equal byte for byte to the one the port's ``CpuChunkEncoder``
+   writes: ``writer``, a taxi-shaped 64-column table, 1,048,576 rows in
+   four row groups; ``levels``, the same table with optional columns
+   (rep/def level pages); ``nested``, BASELINE config 5's 32,768 orders
+   shredded with numpy (rep levels); ``encodings``, the adaptive-encodings
+   corpus, 400,000 rows, with delta and BYTE_STREAM_SPLIT overrides;
+   ``strings``, BASELINE config 1 (8 int64 and 4 string columns, SNAPPY),
+   1,048,576 rows in four row groups, whose string dictionaries are built
+   by the host hash and their pages packed on the card.  Every
+   ``CudaChunkEncoder`` column chunk must go through the native assembler,
+   and no level page through the Python run-list replay; after each path
+   its kernels are replayed on the inputs it gave them (every pack job,
+   every level batch and page table through the pack with its run count,
+   every delta group of either ring) against their plain versions, exactly;
 6. timing — each flagship route's step time and device profile (device
    ops per step), the dictionary build's two routes on one row group's
    columns, one row group's pack jobs through the fused kernel and the
    unfused route in turns, and one row group of each writer path: stage
-   spans and device profile (device ops, busy time, copy time).
+   spans and device profile (device ops, busy time, copy time); the device
+   string dictionary probe (``ops.strings``) on config 1's four string
+   columns and on the encodings corpus's 13-byte ``uid`` column, each equal
+   to ``core.encodings.dictionary_build``, its phases beside the native
+   hash's time.
 
 Phases 4 and 5 are the main paths: every launch count is set to 0 just
 before each of them and read just after, and a kernel of the path that
 never launched fails the run; the ``launches`` reported are their sum.
 The taxi writer must make exactly one pack launch a job and no padded
-index copy; each new writer path must call its device routes (level
+index copy; each other writer path must call its device routes (level
 statistics and run extraction, delta pages, the BYTE_STREAM_SPLIT
-transpose).  The line before the last is one JSON object with a record
+transpose, the string planner's pack jobs).  The line before the last is one JSON object with a record
 per kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -71,6 +87,7 @@ C_FLAG, N_FLAG = 64, 65536  # flagship shape: the bench probe's 64 x 65,536
 TAXI_COLS, TAXI_ROWS, TAXI_GROUPS = 64, 262_144, 4
 NESTED_ROWS, NESTED_GROUPS = 32_768, 4  # BASELINE config 5: bench.py:1588
 ENC_ROWS, ENC_BATCHES = 400_000, 8  # the encodings corpus: bench.py:4928
+CFG1_ROWS, CFG1_GROUPS = 262_144, 4  # BASELINE config 1: bench.py:131, 300-323
 
 
 def fail(msg: str) -> None:
@@ -157,6 +174,97 @@ def phase_build() -> None:
             usage = [ln.split("info    :")[-1].strip() for ln in f
                      if "Used" in ln]
         say(f"[build] {name}: " + "; ".join(usage))
+
+
+def start_native_build():
+    """Build the port's native host library and page assembler (g++) on a
+    thread, so that they compile while ``nvcc`` builds the kernels; returns
+    the thread and the seconds each build took, filled in when it ends."""
+    import threading
+
+    seconds: dict = {}
+
+    def run():
+        from kpw_tpu_torch import native
+
+        t0 = time.perf_counter()
+        native.lib()
+        seconds["library"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        native.assemble()
+        seconds["assembler"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=run, name="native-build")
+    thread.start()
+    return thread, seconds
+
+
+def phase_native(thread, seconds: dict) -> None:
+    """The port's native host layer, built from ``kpw_tpu_torch/native/src``
+    into ``kpw_tpu_torch/_build``: both artifacts load from there, the
+    assembler carries every op kind (``OP_KINDS`` 5), and the library's
+    Snappy round trip, bytes dictionary and RLE/bit-pack hybrid agree with
+    the Python codecs and ``core.encodings``, exactly."""
+    import ctypes
+
+    from kpw_tpu_torch import native
+    from kpw_tpu_torch.core import encodings as enc
+    from kpw_tpu_torch.core.bytecol import ByteColumn
+    from kpw_tpu_torch.core.schema import PhysicalType
+    from kpw_tpu_torch.native import build
+
+    thread.join()
+    L, asm = native.lib(), native.assemble()
+    check(L is not None and asm is not None,
+          f"the port's native library or assembler did not build: {native.errors}")
+    check(L._c._name == build.LIB_SO and asm.__file__ == build.ASSEMBLE_SO,
+          f"native artifacts loaded from {L._c._name}, {asm.__file__}")
+    check(asm.OP_KINDS == 5, f"assembler OP_KINDS {asm.OP_KINDS}, not 5")
+    try:
+        ctypes.CDLL("libsnappy.so.1")
+        snappy = "found (the library dispatches SNAPPY to it)"
+    except OSError:
+        snappy = "not found (the library's own Snappy compressor serves)"
+    say(f"[native] built in {seconds['library']:.2f} s (library) + "
+        f"{seconds['assembler']:.2f} s (assembler), beside nvcc; has_zstd "
+        f"{L.has_zstd}, assembler HAS_ZSTD {asm.HAS_ZSTD}, OP_KINDS "
+        f"{asm.OP_KINDS}; libsnappy.so.1 {snappy}")
+    rng = np.random.default_rng(2)
+    corpus = [b"", b"a", b"abcabc" * 5_000,
+              bytes(rng.integers(0, 256, 100_000, dtype=np.uint8)),
+              bytes(rng.integers(0, 4, 300_000, dtype=np.uint8)),
+              bytes(rng.integers(0, 256, 70_000, dtype=np.uint8)) * 3]
+    for data in corpus:
+        packed = L.snappy_compress(data)
+        check(L.snappy_decompress(packed) == data,
+              f"snappy round trip of {len(data)} bytes differs")
+        parts, n = L.snappy_compress_parts([data[:len(data) // 2],
+                                            memoryview(data)[len(data) // 2:]])
+        check(L.snappy_decompress(bytes(parts[:n])) == data,
+              f"snappy parts round trip of {len(data)} bytes differs")
+    pool = [b"cat_%03d" % j for j in range(100)]
+    for vals in ([pool[k] for k in rng.integers(0, 100, 20_000)],
+                 [b"u%012d" % v for v in rng.integers(0, 10 ** 6, 5_000)],
+                 [b""] * 10 + [b"a\x00", b"a", b"", b"ab"]):
+        col = ByteColumn.from_list(vals)
+        uniq_pos, idx = L.dict_build_bytes(col.data, col.offsets)
+        want_d, want_i = enc.dictionary_build(vals, PhysicalType.BYTE_ARRAY)
+        check([vals[p] for p in uniq_pos] == list(want_d)
+              and np.array_equal(idx, want_i),
+              f"dict_build_bytes differs from core.encodings on {len(vals)} values")
+    cases = 0
+    for width in (0, 1, 3, 8, 13, 32):
+        top = 1 << width
+        for v in (rng.integers(0, top, 5_001, dtype=np.uint64).astype(np.uint32),
+                  runs_of(rng, 5_000, 1, 40, top), np.full(3_000, top - 1, np.uint32),
+                  np.zeros(0, np.uint32)):
+            check(L.rle_hybrid(v, width) == enc.rle_hybrid_encode(v, width),
+                  f"rle_hybrid width {width} differs from core.encodings")
+            cases += 1
+    say(f"[native] snappy round trip (whole and in parts) on {len(corpus)} inputs; "
+        "dict_build_bytes == core.encodings.dictionary_build on 3 string "
+        f"columns; rle_hybrid == core.encodings.rle_hybrid_encode on {cases} "
+        "(width, input) cases")
 
 
 def runs_of(rng, n: int, shortest: int, longest: int, vmax: int) -> np.ndarray:
@@ -905,6 +1013,34 @@ def encodings_setup(small: bool = False):
     return groups, schema, props
 
 
+def strings_setup(small: bool = False):
+    """BASELINE config 1 (bench.py:300-323): 8 int64 columns i{k} drawn from
+    [0, 10^(k+1)) and 4 string columns s0..s3 from a pool of 100
+    ``cat_%03d`` values, as ByteColumns, drawn in bench.py's order from seed
+    1; SNAPPY.  bench.py writes one batch of 262,144 rows; here 1,048,576
+    rows are cut into four row groups of 262,144 (small: two of 8,192), so
+    that the pipeline has work to overlap."""
+    from kpw_tpu_torch.core import (Codec, Schema, WriterProperties,
+                                    columns_from_arrays, leaf)
+    from kpw_tpu_torch.core.bytecol import ByteColumn
+
+    rows, n_groups = (8_192, 2) if small else (CFG1_ROWS, CFG1_GROUPS)
+    total = rows * n_groups
+    rng = np.random.default_rng(1)
+    ints = {f"i{i}": rng.integers(0, 10 ** (i + 1), total).astype(np.int64)
+            for i in range(8)}
+    pool = [b"cat_%03d" % j for j in range(100)]
+    strs = {f"s{i}": [pool[k] for k in rng.integers(0, 100, total)] for i in range(4)}
+    schema = Schema([leaf(f"i{i}", "int64") for i in range(8)]
+                    + [leaf(f"s{i}", "string") for i in range(4)])
+    groups = []
+    for at in range(0, total, rows):
+        batch = {k: v[at:at + rows] for k, v in ints.items()}
+        batch |= {k: ByteColumn.from_list(v[at:at + rows]) for k, v in strs.items()}
+        groups.append(columns_from_arrays(schema, batch))
+    return groups, schema, WriterProperties(codec=Codec.SNAPPY)
+
+
 def write_batches(encoder, groups, schema, props, pipeline: bool = False):
     """Write prebuilt batches one row group each; (file bytes, seconds,
     stage busy seconds).  The pipelined writer gets row_group_size=1, so
@@ -925,26 +1061,41 @@ def write_batches(encoder, groups, schema, props, pipeline: bool = False):
         else:
             w.flush_row_group()
     w.close()
-    if isinstance(encoder, CudaChunkEncoder):
+    if isinstance(encoder, CudaChunkEncoder) and encoder.device.type == "cuda":
         torch.cuda.synchronize()
     return buf.getvalue(), time.perf_counter() - t0, w.stage_busy_s
 
 
-def write_three(groups, schema, props) -> dict:
+CODEC_NAMES = {0: "UNCOMPRESSED", 1: "SNAPPY", 2: "GZIP", 6: "ZSTD"}
+# the four files of a writer path: (key, label, encoder kind, pipelined)
+WRITERS = (("card", "CudaChunkEncoder", "cuda", False),
+           ("pipelined", "pipelined", "cuda", True),
+           ("native", "NativeChunkEncoder", "native", False),
+           ("cpu", "CpuChunkEncoder", "cpu", False))
+
+
+def write_four(groups, schema, props, device="cuda") -> dict:
     """The batches through ``CudaChunkEncoder`` row group by row group and
-    pipelined, and through the port's ``CpuChunkEncoder``: each file, its
-    seconds and the pipeline's stage busy seconds."""
+    pipelined, and through the port's ``NativeChunkEncoder`` and
+    ``CpuChunkEncoder``.  Returns, by key of :data:`WRITERS`, each file,
+    its seconds and the column chunks its encoder put through the native
+    assembler, and the pipeline's stage busy seconds."""
     from kpw_tpu_torch.core.pages import CpuChunkEncoder
+    from kpw_tpu_torch.native.encoder import NativeChunkEncoder
     from kpw_tpu_torch.ops.backend import CudaChunkEncoder
 
     opts = props.encoder_options()
-    out = {}
-    out["card"], out["t_card"], _ = write_batches(CudaChunkEncoder(opts), groups,
-                                                  schema, props)
-    out["pipelined"], out["t_pipe"], out["busy"] = write_batches(
-        CudaChunkEncoder(opts), groups, schema, props, pipeline=True)
-    out["cpu"], out["t_cpu"], _ = write_batches(CpuChunkEncoder(opts), groups,
-                                                schema, props)
+    make = {"cuda": lambda: CudaChunkEncoder(opts, device=device),
+            "native": lambda: NativeChunkEncoder(opts),
+            "cpu": lambda: CpuChunkEncoder(opts)}
+    out = {"files": {}, "seconds": {}, "asm_chunks": {}, "busy": None}
+    for key, _, kind, pipeline in WRITERS:
+        encoder = make[kind]()
+        data, seconds, busy = write_batches(encoder, groups, schema, props, pipeline)
+        out["files"][key], out["seconds"][key] = data, seconds
+        out["asm_chunks"][key] = encoder.native_asm_chunks
+        if pipeline:
+            out["busy"] = busy
     return out
 
 
@@ -953,30 +1104,40 @@ PATH_CALLS = {
     "writer": ("pack_pages_multi",),
     "levels": ("level_stats_multi", "level_runs_multi"),
     "nested": ("level_stats_multi",),
-    "encodings": ("delta_pages_multi", "byte_stream_split_device"),
+    # its BYTE_STREAM_SPLIT pages are transposed inside the native
+    # assembler's call (OP_KINDS 5), as in the JAX package's encoder
+    "encodings": ("delta_pages_multi", "string_pack_jobs"),
+    "strings": ("pack_pages_multi", "string_pack_jobs"),
 }
 COUNTED = (("backend", "pack_pages_multi"), ("backend", "level_stats_multi"),
            ("backend", "level_runs_multi"), ("backend", "delta_pages_multi"),
            ("backend", "byte_stream_split_device"), ("packing", "_pad_rows"))
 # the device routes whose arguments are kept, to replay their kernels
 # against the plain versions on the main path's own inputs afterwards
-RECORDED = ("level_stats_multi", "delta_pages_multi")
+RECORDED = ("pack_pages_multi", "level_stats_multi", "delta_pages_multi")
 
 
-def writer_path(name: str, groups, schema, props) -> dict:
+def writer_path(name: str, groups, schema, props, device="cuda") -> dict:
     """One writer main path: the batches through ``ParquetFileWriter`` +
     ``CudaChunkEncoder`` row group by row group and through the writer's
     pipeline (whose dispatch thread runs ``launch_many`` while its
-    assembly thread runs ``assemble_many`` of the row group before), both
-    files equal byte for byte to the port's ``CpuChunkEncoder`` file, and
-    the encoder's device routes counted by call.  Returns the counts and
-    the arguments of every call of the ``RECORDED`` routes."""
+    assembly thread runs ``assemble_many`` of the row group before), and
+    through the port's ``NativeChunkEncoder``; all three files equal byte
+    for byte to the port's ``CpuChunkEncoder`` file.  Every column chunk of
+    the ``CudaChunkEncoder`` and ``NativeChunkEncoder`` files must go
+    through the native assembler (``_encode_native_chunk``) and no level
+    page through the Python replay of its run list (``_LevelPages.blob``).
+    The encoder's device routes and the string planner's pack jobs are
+    counted.  Returns the counts and the arguments of every call of the
+    ``RECORDED`` routes."""
     from kpw_tpu_torch.ops import backend, packing
 
     modules = {"backend": backend, "packing": packing}
     calls = dict.fromkeys((f for _, f in COUNTED), 0)
+    calls |= {"string_pack_jobs": 0, "string_columns": 0, "level_blob_replays": 0}
     recorded = {f: [] for f in RECORDED}
     saved = {f: getattr(modules[m], f) for m, f in COUNTED}
+    planner, blob = backend._StringDictPlanner, backend._LevelPages.blob
 
     def counted(f):
         def call(*args, **kwargs):
@@ -986,52 +1147,78 @@ def writer_path(name: str, groups, schema, props) -> dict:
             return saved[f](*args, **kwargs)
         return call
 
+    class CountedPlanner(planner):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            calls["string_pack_jobs"] += len(self._groups)
+            calls["string_columns"] += len(self._items)
+
+    def counted_blob(pages):
+        calls["level_blob_replays"] += 1
+        return blob(pages)
+
     for m, f in COUNTED:
         setattr(modules[m], f, counted(f))
+    backend._StringDictPlanner = CountedPlanner
+    backend._LevelPages.blob = counted_blob
     try:
-        files = write_three(groups, schema, props)
+        out = write_four(groups, schema, props, device)
     finally:
         for m, f in COUNTED:
             setattr(modules[m], f, saved[f])
-    check(files["card"] == files["cpu"], f"{name}: CudaChunkEncoder file "
-          f"({len(files['card'])} bytes) != CpuChunkEncoder file ({len(files['cpu'])} bytes)")
-    check(files["pipelined"] == files["cpu"], f"{name}: pipelined CudaChunkEncoder "
-          f"file ({len(files['pipelined'])} bytes) != CpuChunkEncoder file")
-    check(files["busy"]["assemble"] > 0, f"{name}: the pipeline ran no assembly thread")
+        backend._StringDictPlanner = planner
+        backend._LevelPages.blob = blob
+    files, seconds = out["files"], out["seconds"]
+    for key, label, _, _ in WRITERS[:-1]:
+        check(files[key] == files["cpu"], f"{name}: {label} file ({len(files[key])} "
+              f"bytes) != CpuChunkEncoder file ({len(files['cpu'])} bytes)")
+    check(out["busy"]["assemble"] > 0, f"{name}: the pipeline ran no assembly thread")
     check(all(calls[f] > 0 for f in PATH_CALLS[name]),
           f"{name}: a device route of the path did not run: {calls}")
+    chunks = len(schema.columns) * len(groups)
+    asm = out["asm_chunks"]
+    check(all(asm[key] == chunks for key in ("card", "pipelined", "native")),
+          f"{name}: native assembler column chunks {asm}, not {chunks} each")
+    check(calls["level_blob_replays"] == 0, f"{name}: "
+          f"{calls['level_blob_replays']} level pages replayed in Python")
     rows = sum(b.num_rows for b in groups)
     say(f"[{name}] {len(schema.columns)} cols x {rows} rows in {len(groups)} row "
-        f"groups, {len(files['card'])} bytes, byte-identical; CudaChunkEncoder "
-        f"{files['t_card']:.3f} s ({rows / files['t_card']:.0f} rows/s), pipelined "
-        f"{files['t_pipe']:.3f} s ({rows / files['t_pipe']:.0f} rows/s; stage busy s "
-        + ", ".join(f"{k} {v:.3f}" for k, v in files["busy"].items())
-        + f"), CpuChunkEncoder {files['t_cpu']:.3f} s ({rows / files['t_cpu']:.0f} "
-        f"rows/s); device routes called: {calls}")
+        f"groups, {CODEC_NAMES[props.codec]}, {len(files['card'])} bytes, all four "
+        "files byte-identical; rows/s "
+        + ", ".join(f"{label} {rows / seconds[key]:.0f} ({seconds[key]:.3f} s)"
+                    for key, label, _, _ in WRITERS)
+        + "; pipeline stage busy s "
+        + ", ".join(f"{k} {v:.3f}" for k, v in out["busy"].items())
+        + f"; native assembler column chunks {asm}; device routes called: {calls}")
     return calls, recorded
 
 
 def check_path_inputs(torch, name: str, recorded) -> dict:
     """Replay the kernels of one writer path on the inputs the path gave
-    them, against their plain versions, exactly: every level planner phase-A
-    group (the stacked level batch and its page table, with the run count
-    on) through the fused pack, and every delta planner group (the ring's
-    stacked streams and page table) through the delta kernel.  Returns the
-    largest error per kernel (0)."""
+    them, against their plain versions, exactly: every pack job (dictionary
+    and string index pages: the index batch and its page table) and every
+    level planner phase-A group (the stacked level batch and its page
+    table, with the run count on) through the fused pack, and every delta
+    planner group (the ring's stacked streams and page table) through the
+    delta kernel.  Returns the largest error per kernel (0)."""
     from kpw_tpu_torch.ops import bitpack, delta, packing
 
     err = {"bitpack": 0, "delta": 0}
-    seen = {"bitpack": [], "delta": []}
-    for (levels, ids, starts, counts, bucket, width), _ in recorded["level_stats_multi"]:
-        idx = packing.bits32(levels)
-        table = packing.page_table(ids, starts, counts, idx.device)
-        got = bitpack.pack_pages(idx, table, bucket, width, n_runs=True)
-        want = bitpack.pack_pages_plain(idx, table, bucket, width, n_runs=True)
-        e = max(max_abs_err(torch, g, w) for g, w in zip(got, want))
-        check(e == 0, f"{name}: fused pack with n_runs on the path's level batch "
-              f"{tuple(levels.shape)} bucket {bucket} width {width}: max err {e}")
-        err["bitpack"] = max(err["bitpack"], e)
-        seen["bitpack"].append(f"{tuple(levels.shape)} P {len(ids)} bucket {bucket} "
+    seen = {"pack jobs": [], "level pack": [], "delta": []}
+    for route, label, n_runs in (("pack_pages_multi", "pack jobs", False),
+                                 ("level_stats_multi", "level pack", True)):
+        for (batch, ids, starts, counts, bucket, width), _ in recorded[route]:
+            idx = packing.bits32(batch)
+            table = packing.page_table(ids, starts, counts, idx.device)
+            got = bitpack.pack_pages(idx, table, bucket, width, n_runs=n_runs)
+            want = bitpack.pack_pages_plain(idx, table, bucket, width, n_runs=n_runs)
+            e = max(max_abs_err(torch, g, w) for g, w in zip(got, want)
+                    if g is not None)
+            check(e == 0, f"{name}: fused pack (n_runs {n_runs}) on the path's "
+                  f"{label} batch {tuple(batch.shape)} bucket {bucket} width "
+                  f"{width}: max err {e}")
+            err["bitpack"] = max(err["bitpack"], e)
+            seen[label].append(f"{tuple(batch.shape)} P {len(ids)} bucket {bucket} "
                                f"width {width}")
     for args, kwargs in recorded["delta_pages_multi"]:
         streams, ids, starts, counts, bucket, bit_size = args[:6]
@@ -1045,12 +1232,62 @@ def check_path_inputs(torch, name: str, recorded) -> dict:
         err["delta"] = max(err["delta"], e)
         seen["delta"].append(f"{tuple(streams.shape)} ring {bit_size} P {len(ids)} "
                              f"bucket {bucket} max_bits {max_bits}")
-    torch.cuda.synchronize()
-    for kernel, groups in seen.items():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    for label, groups in seen.items():
         if groups:
-            say(f"[{name}] {kernel} == plain on the path's own inputs, "
-                f"{len(groups)} launch(es); distinct: {sorted(set(groups))}")
+            distinct = sorted(set(groups))
+            say(f"[{name}] {label} == plain on the path's own inputs, "
+                f"{len(groups)} launch(es), {len(distinct)} distinct: "
+                + "; ".join(distinct[:8]) + ("; ..." if len(distinct) > 8 else ""))
     return err
+
+
+def string_probe(torch, inputs, device="cuda") -> None:
+    """The device string dictionary probe (``ops.strings``, the JAX
+    package's ``bench.py:354-399``): on config 1's four string columns of
+    one row group (bench.py's 262,144 rows) and on one row group of the
+    encodings corpus's 13-byte ``uid`` column (every row takes the host
+    tie-break), each dictionary equal to ``core.encodings.dictionary_build``;
+    then the best of three runs over the columns, with the phases of the
+    last column, beside the best of three of the native hash
+    (``dict_build_bytes``) over the same columns.  Host clock; the probe
+    reads its indices back, so each call ends in a synchronize."""
+    from kpw_tpu_torch import native
+    from kpw_tpu_torch.core import encodings as enc
+    from kpw_tpu_torch.core.schema import PhysicalType
+    from kpw_tpu_torch.ops.strings import device_string_dictionary
+
+    L = native.lib()
+    cfg1 = [c.values for c in inputs["strings"][0][0].chunks
+            if c.column.name.startswith("s")]
+    uid = [c.values for c in inputs["encodings"][0][0].chunks
+           if c.column.name == "uid"]
+    for label, cols in (("config 1 s0..s3", cfg1), ("encodings uid", uid)):
+        for col in cols:
+            got = device_string_dictionary(col, device=device)
+            want_d, want_i = enc.dictionary_build(col, PhysicalType.BYTE_ARRAY)
+            check(got is not None and got[0] == list(want_d)
+                  and np.array_equal(got[1], want_i),
+                  f"device string dictionary differs from core.encodings on {label}")
+        best, phases = float("inf"), {}
+        for _ in range(3):
+            t: dict = {}
+            t0 = time.perf_counter()
+            for col in cols:
+                device_string_dictionary(col, timings=t, device=device)
+            dt = time.perf_counter() - t0
+            if dt < best:
+                best, phases = dt, t
+        host = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for col in cols:
+                L.dict_build_bytes(col.data, col.offsets, None)
+            host = min(host, time.perf_counter() - t0)
+        say(f"[strings probe] {label}, {len(cols)} x {len(cols[0])} values: "
+            f"== core.encodings.dictionary_build; device probe {best * 1e3:.3f} ms "
+            f"(last column's phases {phases}), native hash {host * 1e3:.3f} ms")
 
 
 def group_breakdown(torch, name: str, batch, schema, props) -> None:
@@ -1111,7 +1348,9 @@ def main() -> None:
         return out, got
 
     card = phase_card(torch)
+    native_build = start_native_build()
     phase_build()
+    phase_native(*native_build)
     timer = Timer(torch)
     recs = phase_kernels(torch, timer)
     cases, launches = drive("flagship", ("bitpack", "hist", "rank"),
@@ -1119,7 +1358,8 @@ def main() -> None:
     paths = {"writer": (writer_setup, ("bitpack",)),
              "levels": (levels_setup, ("bitpack",)),
              "nested": (nested_setup, ("bitpack",)),
-             "encodings": (encodings_setup, ("delta",))}
+             "encodings": (encodings_setup, ("delta",)),
+             "strings": (strings_setup, ("bitpack",))}
     inputs = {}
     for name, (setup, needs) in paths.items():
         inputs[name] = setup()
@@ -1150,6 +1390,7 @@ def main() -> None:
     taxi_pack_jobs(torch, timer, schema, props, taxi[0])
     for name, (groups, schema, props) in inputs.items():
         group_breakdown(torch, name, groups[0], schema, props)
+    string_probe(torch, inputs)
 
     out = []
     for name, r in recs.items():

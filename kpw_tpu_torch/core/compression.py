@@ -3,10 +3,14 @@
 Mirrors the codec surface the reference exposes via parquet-mr
 (``CompressionCodecName`` set at KafkaProtoParquetWriter.java:484, default
 UNCOMPRESSED; the only native code in the reference system is the codec JNI —
-SURVEY.md §2.2).  The port has no C++ codec library yet: GZIP is zlib,
-SNAPPY the system libsnappy through ctypes, ZSTD the ``zstandard`` module
-(imported on first use, so a host without it can still write the other
-codecs).
+SURVEY.md §2.2).  Preference order per codec:
+
+1. the port's own C++ library (``kpw_tpu_torch.native``) — Snappy implemented
+   from scratch (or the system libsnappy, which that library dispatches to
+   when it finds one), ZSTD via libzstd;
+2. system libraries via ctypes / stdlib fallbacks: libsnappy, zlib and the
+   ``zstandard`` module (imported on first use, so a host without it can
+   still write the other codecs).
 """
 
 from __future__ import annotations
@@ -18,6 +22,12 @@ import zlib
 from .schema import Codec
 
 _snappy_ct = None
+
+
+def _native():
+    from .. import native
+
+    return native.lib()
 
 
 def _load_snappy_ctypes():
@@ -54,6 +64,9 @@ def _load_snappy_ctypes():
 
 
 def snappy_compress(data: bytes) -> bytes:
+    lib = _native()
+    if lib is not None:
+        return lib.snappy_compress(data)
     ct = _load_snappy_ctypes()
     if ct:
         max_len = ct.snappy_max_compressed_length(len(data))
@@ -67,6 +80,9 @@ def snappy_compress(data: bytes) -> bytes:
 
 
 def snappy_decompress(data: bytes) -> bytes:
+    lib = _native()
+    if lib is not None:
+        return lib.snappy_decompress(data)
     ct = _load_snappy_ctypes()
     if ct:
         out_len = ctypes.c_size_t(0)
@@ -82,12 +98,22 @@ def snappy_decompress(data: bytes) -> bytes:
 
 
 def zstd_compress(data: bytes, level: int = 3) -> bytes:
+    lib = _native()
+    if lib is not None:
+        out = lib.zstd_compress(data, level)
+        if out is not None:
+            return out
     import zstandard
 
     return zstandard.ZstdCompressor(level=level).compress(data)
 
 
 def zstd_decompress(data: bytes) -> bytes:
+    lib = _native()
+    if lib is not None:
+        out = lib.zstd_decompress(data)
+        if out is not None:
+            return out
     import zstandard
 
     return zstandard.ZstdDecompressor().decompress(data)

@@ -24,12 +24,21 @@ syncs, as ``kpw_tpu/ops/backend.py:TpuChunkEncoder`` does:
 - sync 3 (rare): the dictionary pages whose long runs need the exact mixed
   RLE stream fetch their index windows (``gather_index_slices``).
 
-BYTE_STREAM_SPLIT pages, and the delta pages the planner could not see
-ahead (dictionary-rejected columns, adaptive row group 1), go through the
-device one page at a time (``_values_body``).  Everything else goes
-through the superclass, the port's ``CpuChunkEncoder``: chunks below
-``min_device_rows`` and string dictionaries, which the port does not build
-on the device yet.
+String (BYTE_ARRAY) dictionaries are built on the host by the native C++
+hash, after the numeric builds are launched so that the two overlap; their
+indices are integers like any other dictionary column's, so their pages
+join the fused pack jobs (``_StringDictPlanner``) and sync 2.
+
+The delta pages the planner could not see ahead (dictionary-rejected
+columns, adaptive row group 1) go through the device one page at a time
+(``_values_body``), and so do BYTE_STREAM_SPLIT pages where the native
+assembler does not transpose them inside its own call (codecs it does not
+cover, values not in the column's PLAIN dtype).  Everything else goes
+through the superclass, the port's C++ host encoder
+(``native.encoder.NativeChunkEncoder``), as ``TpuChunkEncoder`` subclasses
+the JAX package's: chunks below ``min_device_rows``, the codecs, and page
+assembly, which the nogil assembler does one column chunk a call (level
+pages from their run tables included).
 """
 
 from __future__ import annotations
@@ -39,13 +48,14 @@ import struct
 import numpy as np
 import torch
 
+from .. import native
 from ..core import encodings as enc
 from ..core.bytecol import ByteColumn
-from ..core.pages import (ColumnChunkData, CpuChunkEncoder, EncoderOptions,
-                          PreparedRowGroup)
+from ..core.pages import ColumnChunkData, EncoderOptions, PreparedRowGroup
 from ..core.schema import Encoding, PhysicalType
 from ..core.thrift import varint_bytes
 from ..device import resolve_device, to_host
+from ..native.encoder import NativeChunkEncoder
 from ..utils.tracing import stage
 from .bss import byte_stream_split_device
 from .delta import (assemble_delta_page, delta_binary_packed_device,
@@ -178,9 +188,10 @@ class _LevelPlanner:
     card; sync 2 reads back only the rows of the pages the decision sends
     to bit-packing;
     phase B (joins sync 2): run-heavy pages get their compact run list
-    extracted on the device and replayed on the host through
-    ``rle_hybrid_from_runs``, byte-identical by construction; bit-packed
-    pages need no second launch.
+    extracted on the device and replayed on the host by the native
+    assembler's RLE-from-runs op (``rle_hybrid_from_runs`` in the Python
+    page loop), byte-identical by construction; bit-packed pages need no
+    second launch.
     """
 
     def __init__(self, encoder: "CudaChunkEncoder", chunks) -> None:
@@ -296,6 +307,98 @@ class _LevelPlanner:
                 _LevelPages(ops)
 
 
+class _StringDictPlanner:
+    """Byte-array dictionary columns in the row-group batch: the dictionary
+    itself builds on the host (the native C++ hash; variable-length bytes
+    have no device build on the encoder path), but the indices are integers
+    like any other dictionary column's, so their pages join the planner's
+    fused pack jobs instead of being encoded page by page on the host."""
+
+    def __init__(self, encoder: "CudaChunkEncoder", chunks) -> None:
+        self._items = []  # (i, chunk, dict_values, idx, width, pages)
+        self._rejected = []  # (i, dict_values, idx): budget-rejected builds
+        self._groups = []  # (rows, width, (packed, long_sum) on the device)
+        opts = encoder.options
+        self.empty = True
+        if encoder._lib is None or not opts.enable_dictionary:
+            return
+        for i, chunk in enumerate(chunks):
+            pt = chunk.column.leaf.physical_type
+            values = chunk.values
+            if (not encoder._dictionary_viable(chunk)
+                    or not encoder.chooser.dictionary_wanted(chunk.column)
+                    or not encoder._bytes_native_ok(values, pt)
+                    or len(values) < encoder.min_device_rows):
+                continue
+            n = len(values)
+            max_k = max(1, int(n * opts.max_dictionary_ratio))
+            built = encoder._bytes_dictionary(values, max_k)
+            if built is None:
+                continue  # ratio abort: encode() re-derives it cheaply
+            dict_values, idx = built
+            k = len(dict_values)
+            plain_len = sum(map(len, dict_values))
+            if pt == PhysicalType.BYTE_ARRAY:
+                plain_len += 4 * k  # FLBA PLAIN has no length prefixes
+            if plain_len > opts.dictionary_page_size_limit:
+                # byte-budget rejection: the built dictionary goes through
+                # the slot, so encode() re-derives the rejection without a
+                # second build
+                self._rejected.append((i, dict_values, idx))
+                continue
+            width = enc.bit_width(max(k - 1, 0))
+            pages = encoder._page_value_ranges(chunk)
+            self._items.append((i, chunk, dict_values, idx, width, pages))
+        self.empty = not self._items and not self._rejected
+        if not self._items:
+            return
+        # one upload of the stacked uint32 indices, as int32 bit patterns
+        stacked = np.zeros((len(self._items), max(len(t[3]) for t in self._items)),
+                           np.uint32)
+        for r, (_, _, _, idx, _, _) in enumerate(self._items):
+            stacked[r, : len(idx)] = idx
+        dev = torch.from_numpy(stacked.view(np.int32)).to(encoder.device)
+        by_key: dict[tuple[int, int], list] = {}
+        for r, (_, _, _, _, width, pages) in enumerate(self._items):
+            if width == 0:
+                continue  # single-value dictionaries have no packed body
+            for va, vb in pages:
+                if vb > va:
+                    by_key.setdefault((pad_bucket(vb - va), width), []).append(
+                        (r, va, vb))
+        for (bucket, width), rows in by_key.items():
+            outs = pack_pages_multi(dev, [r for r, _, _ in rows],
+                                    [va for _, va, _ in rows],
+                                    [vb - va for _, va, vb in rows], bucket, width)
+            self._groups.append((rows, width, outs))
+
+    def device_outputs(self) -> list:
+        return [t for _, _, outs in self._groups for t in outs]
+
+    def fill_slots(self, fetched: list, slots) -> None:
+        """Assemble the page bodies (the device bit-pack, or the exact host
+        RLE over the host-resident indices for long-run pages) and install
+        (dict_values, _PageBodies) in the planner slots; budget-rejected
+        builds go through their slots as they are."""
+        for i, dict_values, idx in self._rejected:
+            slots[i] = (dict_values, idx)  # encode() re-derives the rejection
+        bodies: dict[int, _PageBodies] = {}
+        for r, (i, chunk, dict_values, idx, width, pages) in enumerate(self._items):
+            pb = bodies[r] = _PageBodies(len(idx))
+            for va, vb in pages:  # width-0 / empty pages have no device job
+                body = _trivial_body(width, vb - va)
+                if body is not None:
+                    pb.bodies[(va, vb)] = body
+            slots[i] = (dict_values, pb)
+        for g, (rows, width, _) in enumerate(self._groups):
+            packed_h, long_h = fetched[2 * g], fetched[2 * g + 1]
+            longs = long_h.tolist()
+            for row, (r, va, vb) in enumerate(rows):
+                bodies[r].bodies[(va, vb)] = _hybrid_body(
+                    packed_h[row], longs[row], vb - va, width,
+                    lambda r=r, va=va, vb=vb: self._items[r][3][va:vb])
+
+
 class _DeltaPlanner:
     """Batched device delta encoding of a row group's non-dictionary pages
     (BASELINE config 3): one ``delta_pages_multi`` launch per (bucket, ring)
@@ -394,31 +497,25 @@ class _DeltaPlanner:
                 self.plans.setdefault(id(chunk), (chunk, {}))[1][(va, vb)] = body
 
 
-class CudaChunkEncoder(CpuChunkEncoder):
-    """Byte-identical device implementation of the chunk encoder's
-    dictionary path.  ``device="cuda"`` (the default) raises when no card
-    is available; ``device="cpu"`` runs the same plan with the plain
-    PyTorch versions of the kernels."""
+class CudaChunkEncoder(NativeChunkEncoder):
+    """Byte-identical device implementation of the chunk encoder.
+    ``device="cuda"`` (the default) raises when no card is available;
+    ``device="cpu"`` runs the same plan with the plain PyTorch versions of
+    the kernels.  Either way it raises when the port's native library or
+    assembler did not build: the host work it leaves to the superclass must
+    not fall back to the Python page loops."""
 
     def __init__(self, options: EncoderOptions, min_device_rows: int = 4096,
                  device="cuda") -> None:
-        super().__init__(options)
         self.device = resolve_device(device)
+        if native.lib() is None or native.assemble() is None:
+            raise RuntimeError(
+                "CudaChunkEncoder needs the port's native library and assembler "
+                f"(kpw_tpu_torch/native), which did not build: {native.errors}")
+        super().__init__(options)
         self.min_device_rows = min_device_rows
 
     # -- eligibility -------------------------------------------------------
-    @staticmethod
-    def _fixed_width_ok(values, pt: int) -> bool:
-        """Fixed-width numeric columns: the ones whose keys the device build
-        takes."""
-        return (
-            isinstance(values, np.ndarray)
-            and values.dtype.kind in "iuf"
-            and values.dtype.itemsize in (4, 8)
-            and pt not in (PhysicalType.BOOLEAN, PhysicalType.BYTE_ARRAY,
-                           PhysicalType.FIXED_LEN_BYTE_ARRAY)
-        )
-
     def _device_eligible(self, values, pt: int) -> bool:
         return (self._fixed_width_ok(values, pt)
                 and len(values) >= self.min_device_rows)
@@ -506,11 +603,14 @@ class CudaChunkEncoder(CpuChunkEncoder):
             and self.chooser.dictionary_wanted(chunk.column)
             and self._device_eligible(chunk.values, chunk.column.leaf.physical_type)
         ]
-        if not eligible and lvl.empty and dlt.empty:
-            return None
         opts = self.options
         handles = (build_dictionaries([chunk.values for _, chunk in eligible],
                                       self.device) if eligible else [])
+        # after the numeric launches, so that the host string hashing
+        # overlaps the device dictionary builds
+        sdp = _StringDictPlanner(self, chunks)
+        if not eligible and lvl.empty and dlt.empty and sdp.empty:
+            return None
         batches: list = []
         for batch, _ in handles:
             if batch not in batches:
@@ -558,7 +658,9 @@ class CudaChunkEncoder(CpuChunkEncoder):
                       for b in table_batches]
         lvl_dev = lvl.phase_b_device() if not lvl.empty else []
         dlt_dev = dlt.device_outputs()
-        fetched = to_host(group_dev + tables_dev + lvl_dev + dlt_dev)  # sync 2
+        sdp_dev = sdp.device_outputs()
+        fetched = to_host(  # sync 2
+            group_dev + tables_dev + lvl_dev + dlt_dev + sdp_dev)
         groups_host = list(zip(fetched[0:len(group_dev):2],
                                fetched[1:len(group_dev):2]))
         at = len(group_dev)
@@ -566,22 +668,27 @@ class CudaChunkEncoder(CpuChunkEncoder):
                        zip(table_batches, fetched[at:at + len(tables_dev)])}
         at += len(tables_dev)
         lvl_host = fetched[at:at + len(lvl_dev)]
-        dlt_host = fetched[at + len(lvl_dev):]
-        return (lvl, dlt, col_plans, group_meta, groups_host, tables_host,
-                lvl_host, dlt_host)
+        at += len(lvl_dev)
+        dlt_host = fetched[at:at + len(dlt_dev)]
+        sdp_host = fetched[at + len(dlt_dev):]
+        return (lvl, dlt, sdp, col_plans, group_meta, groups_host, tables_host,
+                lvl_host, dlt_host, sdp_host)
 
-    def _assemble_bodies(self, chunks, slots, lvl, dlt, col_plans, group_meta,
-                         groups_host, tables_host, lvl_host, dlt_host):
+    def _assemble_bodies(self, chunks, slots, lvl, dlt, sdp, col_plans,
+                         group_meta, groups_host, tables_host, lvl_host,
+                         dlt_host, sdp_host):
         """Post-fetch host body assembly, including the rare sync-3
         long-run gather: installs the level and delta plans for this row
         group's ``encode`` calls and (dict_values, _PageBodies) in the
-        slots."""
+        slots, string dictionaries' included."""
         if not lvl.empty:
             lvl.assemble(lvl_host)
             self._level_plans = lvl.plans
         if not dlt.empty:
             dlt.assemble(dlt_host)
             self._delta_plans = dlt.plans
+        if not sdp.empty:
+            sdp.fill_slots(sdp_host, slots)
         bodies_by_slot: dict[int, _PageBodies] = {}
 
         def bodies_for(i: int, n: int) -> _PageBodies:
@@ -670,15 +777,28 @@ class CudaChunkEncoder(CpuChunkEncoder):
                 return hit[1].get(key)
         return None
 
+    def _planned_body(self, chunk, va: int, vb: int) -> bytes | None:
+        """The delta planner's body of page (va, vb), or None."""
+        return self._plan_entry(getattr(self, "_delta_plans", None), chunk,
+                                (va, vb))
+
     def _values_page_body(self, chunk, va: int, vb: int, pt: int,
                           encoding: int) -> bytes:
-        """The planner's delta body of a page, else the per-page route.
-        (The superclass's ``_values_page_parts`` comes through here.)"""
-        body = self._plan_entry(getattr(self, "_delta_plans", None), chunk,
-                                (va, vb))
+        """The planner's delta body of a page, else the per-page route."""
+        body = self._planned_body(chunk, va, vb)
         if body is not None:
             return body
         return super()._values_page_body(chunk, va, vb, pt, encoding)
+
+    def _values_page_parts(self, chunk, va: int, vb: int, pt: int,
+                           encoding: int) -> list:
+        """Planned bodies first: without this, the native superclass's
+        DELTA_LENGTH_BYTE_ARRAY parts route would re-encode on the host
+        what the device plan already produced."""
+        body = self._planned_body(chunk, va, vb)
+        if body is not None:
+            return [body]
+        return super()._values_page_parts(chunk, va, vb, pt, encoding)
 
     def _planned_level_entry(self, chunk, a: int, b: int):
         """The planner's :class:`_LevelPages` entry for slots [a, b), or

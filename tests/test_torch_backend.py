@@ -1,13 +1,14 @@
 """Port row-group writer backend (kpw_tpu_torch.ops.backend.CudaChunkEncoder,
 run here on the CPU with the plain kernel versions): whole files must be
-byte-identical to the JAX package's CpuChunkEncoder and TpuChunkEncoder on
-the same data, and read back with pyarrow.
+byte-identical to the JAX package's CpuChunkEncoder, NativeChunkEncoder and
+TpuChunkEncoder on the same data, and read back with pyarrow.
 
 Both sides are built from one spec list and one property dict: the JAX
 objects are made first and the port's are converted from their fields, so
-the two writers see the same schema and options.  Codecs: UNCOMPRESSED and
-GZIP (the JAX package compresses SNAPPY and ZSTD with its own C++ code,
-which the port does not carry yet).
+the two writers see the same schema and options.  Codecs: UNCOMPRESSED,
+GZIP, SNAPPY (both packages' own C++ Snappy, which dispatches to the same
+system libsnappy when this host has one) and ZSTD where both native
+libraries were built with zstd.
 """
 
 import dataclasses
@@ -20,11 +21,16 @@ import torch
 
 import kpw_tpu.core as J
 import kpw_tpu_torch.core as T
+from kpw_tpu import native as jax_native
 from kpw_tpu.core.pages import CpuChunkEncoder as JaxCpuEncoder
+from kpw_tpu.native.encoder import NativeChunkEncoder as JaxNativeEncoder
 from kpw_tpu.ops import TpuChunkEncoder
+from kpw_tpu_torch import native
 from kpw_tpu_torch.core.bytecol import ByteColumn as PortBytes
 from kpw_tpu_torch.core.pages import ColumnChunkData as PortChunk
 from kpw_tpu_torch.core.pages import CpuChunkEncoder as PortCpuEncoder
+from kpw_tpu_torch.native.encoder import NativeChunkEncoder as PortNativeEncoder
+from kpw_tpu_torch.ops import backend
 from kpw_tpu_torch.ops.backend import CudaChunkEncoder
 
 # Small inputs: more intra-op threads would only contend for the CPU
@@ -62,23 +68,43 @@ def _write(core, schema, props, encoder, batches):
 
 def _identity(specs, arrays, batches=None, **props):
     """Write ``arrays`` (or several row groups, ``batches``) with the JAX
-    CPU and TPU encoders and the port's encoder; assert equal bytes; return
-    them for read-back."""
+    CPU, native and TPU encoders and the port's device and native encoders;
+    assert equal bytes; return them for read-back."""
     batches = batches or [arrays]
     jschema = J.Schema([J.leaf(*a, **kw) for a, kw in specs])
     jprops = J.WriterProperties(**props)
     pschema, pprops = _port_schema(jschema), _port_props(jprops)
     want = _write(J, jschema, jprops, JaxCpuEncoder(jprops.encoder_options()),
                   batches)
+    jnative = _write(J, jschema, jprops, JaxNativeEncoder(jprops.encoder_options()),
+                     batches)
     tpu = _write(J, jschema, jprops,
                  TpuChunkEncoder(jprops.encoder_options(), min_device_rows=1),
                  batches)
     got = _write(T, pschema, pprops,
                  CudaChunkEncoder(pprops.encoder_options(), min_device_rows=1,
                                   device="cpu"), batches)
+    pnative = _write(T, pschema, pprops, PortNativeEncoder(pprops.encoder_options()),
+                     batches)
     assert got == want
+    assert got == jnative
     assert got == tpu
+    assert pnative == want
     return io.BytesIO(got)
+
+
+def _codec(name: str):
+    """The codec of a parametrised case; ZSTD skips, with the reason, where
+    either package's native library was built without zstd."""
+    if name == "zstd":
+        port, ref = native.lib(), jax_native.lib()
+        if not (port is not None and port.has_zstd and ref is not None
+                and ref.has_zstd):
+            pytest.skip("zstd is missing from one of the two native builds here")
+    return getattr(J.Codec, name.upper())
+
+
+CODECS = ["uncompressed", "gzip", "snappy", "zstd"]
 
 
 def _leaf(name, type_name, **kw):
@@ -231,20 +257,32 @@ def _bss_overrides(rng):
         "data_page_size": 32 * 1024}
 
 
+def _baseline_config1(rng):
+    """BASELINE config 1's shape at a small size (bench.py:300-323): 8
+    int64 columns i{k} drawn from [0, 10^(k+1)) and 4 string columns from a
+    pool of 100 values."""
+    n = 6000
+    pool = [b"cat_%03d" % j for j in range(100)]
+    arrays = {f"i{k}": rng.integers(0, 10 ** (k + 1), n).astype(np.int64)
+              for k in range(8)}
+    arrays |= {f"s{k}": [pool[j] for j in rng.integers(0, 100, n)] for k in range(4)}
+    return ([_leaf(f"i{k}", "int64") for k in range(8)]
+            + [_leaf(f"s{k}", "string") for k in range(4)]), arrays, {}
+
+
 CASES = {f.__name__[1:]: f for f in (
     _low_cardinality, _gcd_strided, _floats, _multi_page, _long_runs,
     _width_zero, _high_cardinality, _nullable_and_strings,
     _nullable_differing_counts, _string_dictionary, _string_budget_rejection,
     _string_nullable, _optional_runny_levels, _optional_random_levels,
-    _delta_fallback, _int64_holding_int32, _bss_overrides)}
+    _delta_fallback, _int64_holding_int32, _bss_overrides, _baseline_config1)}
 
 
-@pytest.mark.parametrize("codec", [J.Codec.UNCOMPRESSED, J.Codec.GZIP],
-                         ids=["uncompressed", "gzip"])
+@pytest.mark.parametrize("codec", CODECS)
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_file_identity(case, codec):
     specs, arrays, props = CASES[case](np.random.default_rng(len(case)))
-    buf = _identity(specs, arrays, codec=codec, **props)
+    buf = _identity(specs, arrays, codec=_codec(codec), **props)
     table = pq.read_table(buf)
     for (name, type_name), _ in specs:
         v = arrays[name]
@@ -363,8 +401,7 @@ def _write_batches(core, schema, props, encoder, batches):
     return buf.getvalue()
 
 
-@pytest.mark.parametrize("codec", [J.Codec.UNCOMPRESSED, J.Codec.GZIP],
-                         ids=["uncompressed", "gzip"])
+@pytest.mark.parametrize("codec", CODECS)
 def test_nested_list_struct_identity(codec):
     """BASELINE config 5's shape: list<struct> rows shredded by the JAX
     package's ProtoColumnarizer, handed to the port as level arrays; rep
@@ -392,10 +429,12 @@ def test_nested_list_struct_identity(codec):
         groups.append(msgs)
     jschema = proto_to_schema(Order)
     jbatches = [ProtoColumnarizer(Order, jschema).columnarize(m) for m in groups]
-    jprops = J.WriterProperties(codec=codec, data_page_size=4 * 1024)
+    jprops = J.WriterProperties(codec=_codec(codec), data_page_size=4 * 1024)
     pschema, pprops = _port_schema(jschema), _port_props(jprops)
     want = _write_batches(J, jschema, jprops,
                           JaxCpuEncoder(jprops.encoder_options()), jbatches)
+    jnative = _write_batches(J, jschema, jprops,
+                             JaxNativeEncoder(jprops.encoder_options()), jbatches)
     tpu = _write_batches(J, jschema, jprops,
                          TpuChunkEncoder(jprops.encoder_options(), min_device_rows=1),
                          jbatches)
@@ -404,6 +443,7 @@ def test_nested_list_struct_identity(codec):
                                           device="cpu"),
                          [_jax_to_port_batch(b, pschema) for b in jbatches])
     assert got == want
+    assert got == jnative
     assert got == tpu
     table = pq.read_table(io.BytesIO(got))
     assert [[it["qty"] for it in (row or [])] for row in table["items"].to_pylist()] \
@@ -444,8 +484,7 @@ def test_level_plan_cleared_between_row_groups():
     assert pq.read_table(io.BytesIO(bufs[0].getvalue())).num_rows == 12000
 
 
-@pytest.mark.parametrize("codec", [J.Codec.UNCOMPRESSED, J.Codec.GZIP],
-                         ids=["uncompressed", "gzip"])
+@pytest.mark.parametrize("codec", CODECS)
 def test_adaptive_encodings_two_row_groups(codec):
     """Adaptive encodings: row group 1 is decided inside encode() (the
     per-page device route), row group 2 is planned (delta planner)."""
@@ -459,7 +498,59 @@ def test_adaptive_encodings_two_row_groups(codec):
         for _ in range(2)]
     specs = [_leaf("ts", "int64"), _leaf("rid", "int64"), _leaf("uid", "string"),
              _leaf("price", "double")]
-    buf = _identity(specs, None, batches=batches, codec=codec,
+    buf = _identity(specs, None, batches=batches, codec=_codec(codec),
                     adaptive_encodings=True)
     md = pq.read_metadata(buf)
     assert "DELTA_BINARY_PACKED" in str(md.row_group(1).column(0).encodings)
+
+
+@pytest.mark.parametrize("case", ["string_dictionary", "string_nullable",
+                                  "baseline_config1", "string_budget_rejection"])
+def test_string_planner_serves_the_string_pages(monkeypatch, case):
+    """The string dictionary planner ran: its pack jobs were launched and
+    every page of every planned string column was served from its
+    _PageBodies (nullable columns keyed by their present-value ranges); a
+    dictionary over the page budget was handed through its slot as built,
+    and encode() re-derived the rejection."""
+    planners, served = [], set()
+
+    class Recording(backend._StringDictPlanner):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            planners.append(self)
+
+        def fill_slots(self, fetched, slots):
+            super().fill_slots(fetched, slots)
+            self.filled = {i: slots[i] for i, *_ in self._items}
+            self.handed = {i: slots[i] for i, *_ in self._rejected}
+
+    indices_body = CudaChunkEncoder._indices_body
+
+    def spy(self, indices, va, vb, dict_size):
+        if isinstance(indices, backend._PageBodies):
+            served.add((id(indices), va, vb))
+        return indices_body(self, indices, va, vb, dict_size)
+
+    monkeypatch.setattr(backend, "_StringDictPlanner", Recording)
+    monkeypatch.setattr(CudaChunkEncoder, "_indices_body", spy)
+    specs, arrays, props = CASES[case](np.random.default_rng(len(case)))
+    buf = _identity(specs, arrays, **props)
+    assert planners
+    if case == "string_budget_rejection":
+        assert all(not p._items and p._rejected for p in planners)
+        for p in planners:
+            for dict_values, idx in p.handed.values():
+                assert isinstance(idx, np.ndarray) and len(idx) == len(arrays["s"])
+        assert not pq.read_metadata(buf).row_group(0).column(0).has_dictionary_page
+        return
+    assert sum(len(p._groups) for p in planners) > 0
+    planned = {"string_dictionary": {"s", "t"},  # "hi" aborts at the ratio
+               "string_nullable": {"s"},
+               "baseline_config1": {"s0", "s1", "s2", "s3"}}[case]
+    for p in planners:
+        assert {chunk.column.name for _, chunk, *_ in p._items} == planned
+        for i, chunk, _, _, width, pages in p._items:
+            dict_values, pb = p.filled[i]
+            assert isinstance(pb, backend._PageBodies)
+            assert pages
+            assert all((id(pb), va, vb) in served for va, vb in pages)

@@ -257,11 +257,13 @@ def test_writer_card_equals_cpu_encoder(card, pipeline):
         write(CpuChunkEncoder(props.encoder_options()))
 
 
-@pytest.mark.parametrize("path", ["writer", "levels", "nested", "encodings"])
+@pytest.mark.parametrize("path", ["writer", "levels", "nested", "encodings", "strings"])
 def test_writer_paths_card_equal_cpu_encoder(card, path):
-    """The smoke run's writer paths at a reduced depth: the card's file
-    equals the port's CpuChunkEncoder file, row group by row group and
-    through the pipeline, and the path launched its kernels."""
+    """The smoke run's writer paths at a reduced depth: the card's files
+    (row group by row group and through the pipeline) and the port's
+    NativeChunkEncoder file equal the port's CpuChunkEncoder file, every
+    card column chunk went through the native assembler with no level page
+    replayed in Python, and the path launched its kernels."""
     import os
     import sys
 
@@ -272,12 +274,66 @@ def test_writer_paths_card_equal_cpu_encoder(card, path):
 
     setup = {"writer": chip_smoke.writer_setup, "levels": chip_smoke.levels_setup,
              "nested": chip_smoke.nested_setup,
-             "encodings": chip_smoke.encodings_setup}[path]
+             "encodings": chip_smoke.encodings_setup,
+             "strings": chip_smoke.strings_setup}[path]
     groups, schema, props = setup(small=True)
     before = (pack_pages.launches, delta_pages.launches)
-    files = chip_smoke.write_three(groups, schema, props)
-    assert files["card"] == files["cpu"] and files["pipelined"] == files["cpu"]
+    calls, recorded = chip_smoke.writer_path(path, groups, schema, props)
+    assert calls["level_blob_replays"] == 0
     if path == "encodings":
         assert delta_pages.launches > before[1]
     else:
         assert pack_pages.launches > before[0]
+    if path == "strings":
+        assert calls["string_pack_jobs"] > 0
+    assert chip_smoke.check_path_inputs(torch, path, recorded) == {"bitpack": 0, "delta": 0}
+
+
+def test_string_planner_card_equals_cpu(card):
+    """String dictionary columns (one nullable, one over the page budget,
+    one of a single value) on the card: the planner's pack jobs launch the
+    pack kernel and the file equals the port's CpuChunkEncoder file."""
+    from kpw_tpu_torch.core import (ParquetFileWriter, Repetition, Schema,
+                                    WriterProperties, columns_from_arrays, leaf)
+    from kpw_tpu_torch.core.pages import CpuChunkEncoder
+    from kpw_tpu_torch.ops import backend
+    from kpw_tpu_torch.ops.backend import CudaChunkEncoder
+    from kpw_tpu_torch.ops.bitpack import pack_pages
+
+    rng = np.random.default_rng(6)
+    n = 30_000
+    pool = [b"cat_%03d" % j for j in range(150)]
+    wide = [b"%0118x" % v for v in rng.integers(0, 1 << 62, n // 2)]
+    schema = Schema([leaf("s", "string"), leaf("o", "string", Repetition.OPTIONAL),
+                     leaf("w", "string"), leaf("c", "string")])
+    arrays = {"s": [pool[k] for k in rng.integers(0, 150, n)],
+              "o": ([pool[k] for k in rng.integers(0, 40, n)], rng.random(n) > 0.3),
+              "w": [wide[k] for k in rng.integers(0, len(wide), n)],
+              "c": [b"same"] * n}
+    props = WriterProperties(data_page_size=16 * 1024)
+    planners = []
+
+    class Recording(backend._StringDictPlanner):
+        def __init__(self, *args, **kwargs):
+            before = pack_pages.launches
+            super().__init__(*args, **kwargs)
+            self.launches = pack_pages.launches - before  # its pack jobs
+            planners.append(self)
+
+    def write(encoder):
+        buf = io.BytesIO()
+        w = ParquetFileWriter(buf, schema, props, encoder=encoder)
+        w.write_batch(columns_from_arrays(schema, arrays))
+        w.close()
+        return buf.getvalue()
+
+    saved, backend._StringDictPlanner = backend._StringDictPlanner, Recording
+    try:
+        got = write(CudaChunkEncoder(props.encoder_options()))
+    finally:
+        backend._StringDictPlanner = saved
+    assert got == write(CpuChunkEncoder(props.encoder_options()))
+    (planner,) = planners
+    assert {c.column.name for _, c, *_ in planner._items} == {"s", "o", "c"}
+    assert [i for i, *_ in planner._rejected] == [2]
+    assert planner.launches == len(planner._groups) > 0

@@ -7,7 +7,10 @@
   kernel and raises where the kernel cannot be built, never running its
   plain version; and the wrappers refuse tensors on any device other than
   the CPU (plain version) or CUDA (kernel);
-- work on CPU tensors launches no kernel: every launch counter stays 0.
+- work on CPU tensors launches no kernel: every launch counter stays 0;
+- the port's native host library builds only from its own sources
+  (``kpw_tpu_torch/native/src``) into ``kpw_tpu_torch/_build``, and
+  ``CudaChunkEncoder`` refuses to run without it.
 """
 
 import io
@@ -22,7 +25,9 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 import kpw_tpu_torch.core as T
 from kpw_tpu_torch.entry import entry
-from kpw_tpu_torch.ops import _build, backend, bitpack, delta, dictionary, rank
+from kpw_tpu_torch import native
+from kpw_tpu_torch.native import build as native_build
+from kpw_tpu_torch.ops import _build, backend, bitpack, delta, dictionary, rank, strings
 from kpw_tpu_torch.parallel.sharded import encode_step_single
 
 # Small inputs: more intra-op threads would only contend for the CPU
@@ -71,7 +76,9 @@ def test_port_imports_without_jax_or_kpw_tpu():
                 "kpw_tpu_torch.ops.levels", "kpw_tpu_torch.ops.delta",
                 "kpw_tpu_torch.ops.bss", "kpw_tpu_torch.ops.packing",
                 "kpw_tpu_torch.parallel.sharded", "kpw_tpu_torch.entry",
-                "kpw_tpu_torch.core.writer", "kpw_tpu_torch.utils.tracing"):
+                "kpw_tpu_torch.core.writer", "kpw_tpu_torch.utils.tracing",
+                "kpw_tpu_torch.ops.strings", "kpw_tpu_torch.native",
+                "kpw_tpu_torch.native.build", "kpw_tpu_torch.native.encoder"):
         assert mod in names.split()
 
 
@@ -89,9 +96,59 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         entry()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         entry(device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        strings.device_string_dictionary(T.bytecol.ByteColumn.from_list([b"a"]))
     # explicit CPU is the only way onto the CPU
     backend.CudaChunkEncoder(opts, device="cpu")
     entry(device="cpu")
+    strings.device_string_dictionary(T.bytecol.ByteColumn.from_list([b"a"]),
+                                     device="cpu")
+
+
+@pytest.mark.parametrize("missing", ["lib", "assemble"])
+def test_encoder_refuses_a_missing_native_build(monkeypatch, missing):
+    """CudaChunkEncoder never runs the Python page loops its native
+    superclass replaces: without the port's native library or assembler
+    it raises, naming the build error."""
+    monkeypatch.setattr(native, missing, lambda: None)
+    monkeypatch.setattr(native, "errors", {missing: "RuntimeError('g++ failed')"})
+    opts = T.WriterProperties().encoder_options()
+    with pytest.raises(RuntimeError, match="native library and assembler.*g\\+\\+ failed"):
+        backend.CudaChunkEncoder(opts, device="cpu")
+
+
+def test_native_build_reads_only_the_ports_sources(monkeypatch, tmp_path):
+    """Every g++ call of the port's native build compiles sources under
+    kpw_tpu_torch/native/src only (none of the JAX package's, no shredder)
+    and writes under the build directory it was given."""
+    import os
+
+    src_dir = os.path.join(os.path.dirname(T.__file__), os.pardir, "native", "src")
+    src_dir = os.path.realpath(src_dir)
+    assert native_build.SRC_DIR == src_dir
+    assert native_build.BUILD_DIR == os.path.realpath(
+        os.path.join(src_dir, os.pardir, os.pardir, "_build"))
+    assert sorted(os.listdir(src_dir)) == ["assemble.cc", "codecs.cc", "encode.cc"]
+    calls = []
+
+    def fake_gcc(args, check, capture_output):
+        calls.append(args)
+        with open(args[args.index("-o") + 1], "wb") as f:
+            f.write(b"so")
+
+    monkeypatch.setattr(native_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(native_build, "_LOCK", str(tmp_path / "native.lock"))
+    monkeypatch.setattr(native_build, "LIB_SO", str(tmp_path / "lib.so"))
+    monkeypatch.setattr(native_build, "ASSEMBLE_SO", str(tmp_path / "asm.so"))
+    monkeypatch.setattr(native_build.subprocess, "run", fake_gcc)
+    native_build.build_lib()
+    native_build.build_assemble()
+    assert len(calls) == 2
+    for args in calls:
+        sources = [a for a in args if a.endswith((".cc", ".c", ".cpp", ".h"))]
+        assert sources and all(os.path.dirname(a) == src_dir for a in sources)
+        assert "shred" not in " ".join(args)
+        assert os.path.dirname(args[args.index("-o") + 1]) == str(tmp_path)
 
 
 def test_wrappers_refuse_other_devices():
@@ -212,6 +269,7 @@ _COUNTING = (bitpack.pack_pages, rank.hist_dict, rank.rank_pages,
 
 
 def test_cpu_tensors_launch_no_kernel(monkeypatch):
+    # string dictionaries (the planner's pack jobs, the device probe) too
     for f in _COUNTING:
         monkeypatch.setattr(f, "launches", 0)
     rng = np.random.default_rng(0)
@@ -245,4 +303,14 @@ def test_cpu_tensors_launch_no_kernel(monkeypatch):
         "t": np.cumsum(rng.integers(0, 9, 5000)).astype(np.int64),
         "f": rng.normal(size=5000)}))
     w.close()
+    schema = T.Schema([T.leaf("s", "string")])
+    w = T.ParquetFileWriter(io.BytesIO(), schema, props,
+                            encoder=backend.CudaChunkEncoder(
+                                props.encoder_options(), min_device_rows=1,
+                                device="cpu"))
+    words = [b"w%d" % k for k in rng.integers(0, 30, 5000)]
+    w.write_batch(T.columns_from_arrays(schema, {"s": words}))
+    w.close()
+    strings.device_string_dictionary(T.bytecol.ByteColumn.from_list(words),
+                                     device="cpu")
     assert tuple(f.launches for f in _COUNTING) == (0, 0, 0, 0)

@@ -1,0 +1,45 @@
+"""The smoke run's native phase, writer paths and string probe
+(``chip_smoke.py``), rehearsed here on the CPU at their small sizes with
+``device="cpu"``: every check the card run makes on a path holds here too
+(all four files byte-identical, every ``CudaChunkEncoder`` and
+``NativeChunkEncoder`` column chunk through the native assembler, no
+level page replayed in Python, the path's device routes called, its pack
+and delta jobs equal to their plain versions on its own inputs)."""
+
+import os
+import sys
+
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402
+
+torch.set_num_threads(1)
+
+SETUPS = {"writer": chip_smoke.writer_setup, "levels": chip_smoke.levels_setup,
+          "nested": chip_smoke.nested_setup, "encodings": chip_smoke.encodings_setup,
+          "strings": chip_smoke.strings_setup}
+
+
+def test_native_phase():
+    chip_smoke.phase_native(*chip_smoke.start_native_build())
+
+
+@pytest.mark.parametrize("path", sorted(SETUPS))
+def test_writer_path(path):
+    groups, schema, props = SETUPS[path](small=True)
+    calls, recorded = chip_smoke.writer_path(path, groups, schema, props, device="cpu")
+    if path == "strings":  # two card files, four string columns a row group
+        assert calls["string_columns"] == 2 * 4 * len(groups)
+        assert calls["string_pack_jobs"] >= 2 * len(groups)
+    if path in ("levels", "nested"):
+        assert calls["level_runs_multi"] > 0 and calls["level_blob_replays"] == 0
+    errors = chip_smoke.check_path_inputs(torch, path, recorded)
+    assert errors == {"bitpack": 0, "delta": 0}
+    assert any(recorded[f] for f in chip_smoke.RECORDED)
+
+
+def test_string_probe():
+    inputs = {name: SETUPS[name](small=True) for name in ("strings", "encodings")}
+    chip_smoke.string_probe(torch, inputs, device="cpu")
