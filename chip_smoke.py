@@ -21,18 +21,20 @@ Phases, in order; any failed check exits non-zero before the result lines:
    windows at every width, with and without its run count; the hist +
    dictionary kernel on columns with few distinct values, ragged counts
    and dictionaries narrower and wider than its table; the delta kernel
-   on both rings, wraparound edges, every width bucket and ragged counts,
-   each assembled page also against ``core.encodings``), then each timed
-   with CUDA events (median of 25 runs, L2 flushed before each) beside its
-   plain version, the PyTorch library call that computes the same
-   function, and its memory bound — the pack, hist and rank at the
-   flagship shape (the pack without its run count), the delta kernel at
-   the shape the encodings path gives it; the unfused routes (tensor ops
-   around a kernel) against the fused kernels, in turns;
+   byte for byte on both rings, wraparound edges, every width bucket, a
+   violated width budget, ragged counts, pages of 1 to 1,024 blocks and a
+   launch of 65,536 blocks, more than the card keeps resident, through the
+   look-back and the two-launch route, each page with its header also
+   against ``core.encodings``), then each timed with CUDA events (median
+   of 25 runs, L2 flushed before each) beside its plain version, the
+   PyTorch library call that computes the same function, and its memory
+   bound — the pack, hist and rank at the flagship shape (the pack without
+   its run count); the unfused routes (tensor ops around a kernel) against
+   the fused kernels, in turns;
 4. flagship — ``entry()`` and ``encode_step_single`` at 64 x 65,536 on the
    sort route and both bounded routes, each run once and equal to the same
    step run on the CPU (plain versions);
-5. writers — five tables through ``ParquetFileWriter`` + ``CudaChunkEncoder``,
+5. writers — six tables through ``ParquetFileWriter`` + ``CudaChunkEncoder``,
    each row group by row group and through the writer's pipeline, and
    through the port's ``NativeChunkEncoder`` (host C++), each of the four
    files equal byte for byte to the one the port's ``CpuChunkEncoder``
@@ -43,20 +45,27 @@ Phases, in order; any failed check exits non-zero before the result lines:
    corpus, 400,000 rows, with delta and BYTE_STREAM_SPLIT overrides;
    ``strings``, BASELINE config 1 (8 int64 and 4 string columns, SNAPPY),
    1,048,576 rows in four row groups, whose string dictionaries are built
-   by the host hash and their pages packed on the card.  Every
+   by the host hash and their pages packed on the card; ``cfg3``, BASELINE
+   config 3's encode-side arm (4 timestamp and 4 hex-string columns,
+   UNCOMPRESSED, delta fallback), 524,288 rows in four row groups.  Every
    ``CudaChunkEncoder`` column chunk must go through the native assembler,
-   and no level page through the Python run-list replay; after each path
-   its kernels are replayed on the inputs it gave them (every pack job,
-   every level batch and page table through the pack with its run count,
-   every delta group of either ring) against their plain versions, exactly;
-6. timing — each flagship route's step time and device profile (device
-   ops per step), the dictionary build's two routes on one row group's
+   and no level page through the Python run-list replay; the delta paths
+   make one delta launch per ring a row group; after each path its kernels
+   are replayed on the inputs it gave them (every pack job, every level
+   batch and page table through the pack with its run count, every delta
+   launch of either ring) against their plain versions, exactly;
+6. timing — the delta kernel at the shapes the ``encodings`` and ``cfg3``
+   paths gave it, beside its plain version and the two-launch route in
+   turns; each flagship route's step time and device profile (device ops
+   per step), the dictionary build's two routes on one row group's
    columns, one row group's pack jobs through the fused kernel and the
-   unfused route in turns, and one row group of each writer path: stage
-   spans and device profile (device ops, busy time, copy time); the device
-   string dictionary probe (``ops.strings``) on config 1's four string
-   columns and on the encodings corpus's 13-byte ``uid`` column, each equal
-   to ``core.encodings.dictionary_build``, its phases beside the native
+   unfused route in turns, and one row group of each writer path: median
+   stage spans of five runs and device profile (device ops, busy time,
+   copy time); on the two delta paths the planner's two readbacks in turns
+   with the bytes each reads back; the device string dictionary probe
+   (``ops.strings``) on config 1's four string columns and on the
+   encodings corpus's 13-byte ``uid`` column, each equal to
+   ``core.encodings.dictionary_build``, its phases beside the native
    hash's time.
 
 Phases 4 and 5 are the main paths: every launch count is set to 0 just
@@ -65,8 +74,14 @@ never launched fails the run; the ``launches`` reported are their sum.
 The taxi writer must make exactly one pack launch a job and no padded
 index copy; each other writer path must call its device routes (level
 statistics and run extraction, delta pages, the BYTE_STREAM_SPLIT
-transpose, the string planner's pack jobs).  The line before the last is one JSON object with a record
-per kernel; the last line is ``{"ok": true, "device": {...}}``.
+transpose, the string planner's pack jobs).  The line before the last is
+one JSON object with a record per kernel (the delta kernel's at the
+``encodings`` shape); the last line is ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --bodies ROOT`` instead runs one row group of the
+``encodings`` and ``cfg3`` paths through the ``kpw_tpu_torch`` under ROOT
+(another checkout, such as the parent commit's) and prints its median
+stage spans, to compare two trees in one call; it prints no result line.
 """
 
 from __future__ import annotations
@@ -88,6 +103,7 @@ TAXI_COLS, TAXI_ROWS, TAXI_GROUPS = 64, 262_144, 4
 NESTED_ROWS, NESTED_GROUPS = 32_768, 4  # BASELINE config 5: bench.py:1588
 ENC_ROWS, ENC_BATCHES = 400_000, 8  # the encodings corpus: bench.py:4928
 CFG1_ROWS, CFG1_GROUPS = 262_144, 4  # BASELINE config 1: bench.py:131, 300-323
+CFG3_ROWS, CFG3_GROUPS = 131_072, 4  # BASELINE config 3: bench.py:1233-1249
 
 
 def fail(msg: str) -> None:
@@ -418,48 +434,98 @@ def delta_rows(rng, bit_size: int) -> list:
     return rows
 
 
-def check_delta(torch, rng) -> int:
-    """The delta kernel against its plain version, exactly, on both rings:
-    for each row of :func:`delta_rows`, pages of counts 0, 1, 2, 127, 128,
-    129 and ragged ones at unaligned starts and past the row's end, at the
-    row's own width bucket (one launch each); then every assembled page
-    against ``core.encodings.delta_binary_packed_encode``.  Returns the
-    largest error (0)."""
+def same_streams(torch, got, want) -> int:
+    """The largest difference between two ``delta_page_streams`` results:
+    offsets, width flag and the bytes written (those below the capacity)."""
+    from kpw_tpu_torch.ops.delta import stream_bytes
+
+    return max(max_abs_err(torch, got[1], want[1]), max_abs_err(torch, got[2], want[2]),
+               max_abs_err(torch, stream_bytes(*got[:2]), stream_bytes(*want[:2])))
+
+
+def delta_pages_equal_oracle(streams_h: np.ndarray, table, out, offsets,
+                             bit_size: int, what: str) -> int:
+    """Every page of one launch, its header added, against
+    ``core.encodings.delta_binary_packed_encode`` of its window; returns
+    the number of pages compared."""
     from kpw_tpu_torch.core import encodings as enc
     from kpw_tpu_torch.ops import delta
 
-    worst, launches, buckets = 0, 0, set()
+    out_h, off_h = out.cpu().numpy(), offsets.cpu().numpy()
+    for p, (r, s, c) in enumerate(np.asarray(table).reshape(-1, 3)):
+        window = np.zeros(c, streams_h.dtype)  # past the row's end: 0
+        part = streams_h[r, s:s + c]
+        window[:len(part)] = part
+        header, body = delta.page_parts(int(window[0]) if c else 0, int(c), out_h,
+                                        int(off_h[p]), int(off_h[p + 1]))
+        check(header + body.tobytes() == enc.delta_binary_packed_encode(window, bit_size),
+              f"delta {what} page {(r, s, c)}: stream differs from the oracle")
+    return len(table)
+
+
+def check_delta(torch, rng) -> int:
+    """The delta kernel against its plain version, byte for byte, on both
+    rings: for each row of :func:`delta_rows`, pages of counts 0, 1, 2,
+    127, 128, 129 and ragged ones at unaligned starts and past the row's
+    end, at the row's own width bucket (one launch each), and the uniform
+    row under an 8-bit budget (flagged, cut at the capacity alike); pages
+    of 1 to 1,024 blocks; and 64 pages of 1,024 blocks in one launch, far
+    more blocks than the card keeps resident, through the look-back and
+    through the two-launch route.  Every page with its header also equals
+    ``core.encodings.delta_binary_packed_encode``.  Returns the largest
+    error (0)."""
+    from kpw_tpu_torch.ops import delta
+
+    worst, launches, buckets, pages_checked = 0, 0, set(), 0
+
+    def compare(streams_h, table, bit_size, max_bits, what, oracle=True, two=False):
+        nonlocal worst, launches, pages_checked
+        streams = torch.from_numpy(streams_h).to("cuda")
+        want = delta.delta_page_streams_plain(streams, table, bit_size, max_bits)
+        routes = [delta.delta_page_streams] + (
+            [delta.delta_page_streams_two_launch] if two else [])
+        for route in routes:
+            got = route(streams, table, bit_size, max_bits)
+            launches += 1
+            e = same_streams(torch, got, want)
+            check(e == 0, f"delta ring {bit_size} {what} ({route.__name__}): max err {e}")
+            worst = max(worst, e)
+        if oracle and not int(got[2][0]):
+            pages_checked += delta_pages_equal_oracle(streams_h, table, *got[:2],
+                                                      bit_size, what)
+        return got
+
     pages = ((0, 2), (3, 127), (1, 128), (5, 129), (0, 0), (9, 1), (17, 1_000),
              (1_234, 1_766), (2_990, 10), (3_000, 4), (7, 2_048))
-    bucket = 2_048
     for bit_size in (32, 64):
+        itype = np.int64 if bit_size == 64 else np.int32
         for label, vals in delta_rows(rng, bit_size):
             max_bits = delta.delta_bits_bucket(int(vals.max()) - int(vals.min()),
                                                bit_size)
             buckets.add((bit_size, max_bits))
-            streams = torch.from_numpy(vals[None, :]).to("cuda")
-            table = torch.tensor([[0, s, c] for s, c in pages], dtype=torch.int32,
-                                 device="cuda")
-            got = delta.delta_pages(streams, table, bucket, bit_size, max_bits)
-            want = delta.delta_pages_plain(streams, table, bucket, bit_size, max_bits)
-            launches += 1
-            e = max(max_abs_err(torch, g, w) for g, w in zip(got, want))
-            check(e == 0, f"delta ring {bit_size} {label}: max err {e}")
-            worst = max(worst, e)
-            mins, widths, packed = (t.cpu().numpy() for t in got)
-            for r, (s, c) in enumerate(pages):
-                window = vals[s:s + c]
-                body = delta.assemble_delta_page(
-                    int(window[0]) if len(window) else 0, len(window), mins[r],
-                    widths[r], packed[r], bit_size, max_bits)
-                check(body == enc.delta_binary_packed_encode(window, bit_size),
-                      f"delta ring {bit_size} {label} page {(s, c)}: assembled "
-                      "stream differs from the oracle")
+            table = np.array([[0, s, c] for s, c in pages])
+            compare(vals[None, :], table, bit_size, max_bits, label)
+            if label == "uniform":  # a wrong width bound: flagged, cut alike
+                got = compare(vals[None, :], table, bit_size, 8, "uniform under 8 bits")
+                check(int(got[2][0]) > 8, "delta: a width over the budget was not flagged")
+        n = 1_024 * 128 + 1
+        long = np.stack([np.cumsum(rng.integers(-2, 60, n + 5_000)).astype(itype),
+                         (rng.integers(0, 1 << 20, n + 5_000) - (1 << 19)).astype(itype)])
+        ragged = np.array([[b % 2, 3 * b, 1 + 128 * b] for b in
+                           (1, 2, 3, 7, 64, 100, 513, 1_000, 1_024)])
+        compare(long, ragged, bit_size, 24, "pages of 1..1,024 blocks", two=True)
+        resident = np.array([[p % 2, (37 * p) % 5_000, n] for p in range(64)])
+        got = compare(long, resident, bit_size, 24, "64 pages x 1,024 blocks",
+                      oracle=False, two=True)
+        pages_checked += delta_pages_equal_oracle(long, resident[:4], got[0], got[1],
+                                                  bit_size, "64 x 1,024 (first 4)")
     torch.cuda.synchronize()
     say(f"[kernels] delta == plain on both rings ({launches} launches, width "
         f"buckets {sorted(buckets)}; wraparound edges, counts 0/1/2/127/128/129/"
-        "ragged, starts past the row's end) and every assembled page == "
-        "core.encodings.delta_binary_packed_encode")
+        "ragged, starts past the row's end, an 8-bit budget violated; pages of "
+        "1..1,024 blocks; 64 pages x 1,024 blocks = 65,536 blocks in one launch, "
+        f"look-back and two-launch routes) and {pages_checked} pages with their "
+        "headers == core.encodings.delta_binary_packed_encode")
     return worst
 
 
@@ -467,6 +533,18 @@ def abba(timer: Timer, a, b) -> tuple[float, float, list]:
     """Time a and b in turns (a b b a); returns their means and all four."""
     t = [timer.ms(a), timer.ms(b), timer.ms(b), timer.ms(a)]
     return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+
+def summarize(name: str, r: dict) -> None:
+    """A kernel record's bound, from the bytes it must move, printed with
+    its times."""
+    r["bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
+    r["bound_by"] = "bytes"
+    lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+    say(f"[kernels] {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, library {lib}, bound "
+        f"{r['bound_ms']:.6f} ms ({r['bytes']} bytes), "
+        f"{r['ms'] / r['bound_ms']:.2f}x the bound")
 
 
 def phase_kernels(torch, timer: Timer) -> dict:
@@ -553,17 +631,10 @@ def phase_kernels(torch, timer: Timer) -> dict:
             bytes=C * N * 4 + C * vb * 4 + C * N * 4,
             shape=f"({C}, {N}) int32 + ({C}, {NHI}, 64) int32 -> ({C}, {N}) int32"),
     }
-    recs["delta"] = delta_record(torch, timer, err["delta"])
     for name, r in recs.items():
         r["max_abs_err"] = err[name]
-        r["bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        r["bound_by"] = "bytes"
-        lib = ("n/a" if r["library_ms"] is None
-               else f"{r['library_ms']:.4f} ms")
-        say(f"[kernels] {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {lib}, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bytes']} bytes), "
-            f"{r['ms'] / r['bound_ms']:.2f}x the bound")
+        summarize(name, r)
+    recs["delta"] = dict(max_abs_err=err["delta"])  # timed after the main path
 
     # yardstick: one PyTorch copy of the (C, N) int32 ranks, to read the
     # kernels' distance from the bound against what a plain memory-bound
@@ -605,44 +676,63 @@ def phase_kernels(torch, timer: Timer) -> dict:
     return recs
 
 
-def delta_record(torch, timer: Timer, err: int) -> dict:
-    """The delta kernel timed at the shape the encodings path hands it: one
-    row group's three int64 streams (ts, seq, rid: 50,000 values each) as
-    one (bucket 65,536, 64-bit ring) group, at the group's width budget;
-    checked against its plain version on the same inputs first."""
+def delta_bytes(table, bit_size: int, offsets) -> int:
+    """What one delta launch must move at least: each page's values read
+    once, its page table row and block prefix entry, and the body bytes
+    and offsets written once."""
+    tab = np.asarray(table).reshape(-1, 3)
+    P = len(tab)
+    return (int(tab[:, 2].sum()) * bit_size // 8 + P * 12 + (P + 1) * 4
+            + int(offsets[-1]) + (P + 1) * 8)
+
+
+def delta_record(torch, timer: Timer, err: int, shapes: dict) -> dict:
+    """The delta kernel timed at the shapes the main path hands it: one
+    row group's 64-bit ring launch of the ``encodings`` path (ts, seq, rid)
+    and of the ``cfg3`` path (ts0..ts3), each checked against its plain
+    version on the same inputs first.  The kernel's time is a staged
+    launch's (``ops.delta.DeltaLaunch.run``: the look-back state's memset
+    and the kernel), the call's time adds the wrapper's staging (the page
+    table's upload, the allocations); then the single-pass look-back
+    against the two-launch route (lengths, a PyTorch scan, the write), in
+    turns.  The record carries the encodings shape."""
     from kpw_tpu_torch.ops import delta
 
-    arrays = make_encodings_corpus(ENC_ROWS)
-    n = ENC_ROWS // ENC_BATCHES
-    cols = [np.ascontiguousarray(arrays[c][:n], np.int64) for c in ("ts", "seq", "rid")]
-    max_bits = max(delta.delta_bits_bucket(int(v.max()) - int(v.min()), 64)
-                   for v in cols)
-    bucket = 1 << (n - 1).bit_length()
-    streams = torch.from_numpy(np.stack(cols)).to("cuda")
-    table = torch.tensor([[r, 0, n] for r in range(len(cols))], dtype=torch.int32,
-                         device="cuda")
-    got = delta.delta_pages(streams, table, bucket, 64, max_bits)
-    want = delta.delta_pages_plain(streams, table, bucket, 64, max_bits)
-    e = max(max_abs_err(torch, g, w) for g, w in zip(got, want))
-    check(e == 0, f"delta at the encodings shape: max err {e}")
-    P, blocks = len(cols), bucket // 128
-    used = -(-(n - 1) // 128)  # the blocks that hold a page's n - 1 deltas
-    return dict(
-        name="delta", route="cuda", source="kpw_tpu_torch/csrc/delta.cu",
-        replaces="kpw_tpu/ops/delta.py:119 (_delta_window, XLA code; no pallas_call)",
-        max_abs_err=max(err, e),
-        ms=timer.ms(lambda: delta.delta_pages(streams, table, bucket, 64, max_bits)),
-        plain_ms=timer.ms(lambda: delta.delta_pages_plain(streams, table, bucket,
-                                                          64, max_bits)),
-        library_ms=None,
-        # each page's values and table row read once, the mins, widths and
-        # packed slots of its blocks that hold deltas written once; the
-        # kernel also writes the bucket's padding blocks past them, which
-        # the host never reads: overhead, left out of the bound
-        bytes=P * n * 8 + P * 12 + P * used * (8 + 16 + 16 * max_bits),
-        shape=f"({P}, {n}) int64 streams, bucket {bucket}, max_bits {max_bits} -> "
-              f"mins ({P}, {blocks}), widths ({P}, {blocks}, 4), packed "
-              f"({P}, {blocks}, 4, {4 * max_bits})")
+    rec = dict(name="delta", route="cuda", source="kpw_tpu_torch/csrc/delta.cu",
+               replaces="kpw_tpu/ops/delta.py:119 (_delta_window, XLA code; "
+                        "no pallas_call)",
+               max_abs_err=err, library_ms=None)
+    for label in ("cfg3", "encodings"):
+        streams, table, bit_size, max_bits = shapes[label]
+        staged = delta.DeltaLaunch(streams, table, bit_size, max_bits)
+        got = staged.run()
+        e = same_streams(torch, got, delta.delta_page_streams_plain(
+            streams, table, bit_size, max_bits))
+        check(e == 0, f"delta at the {label} shape: max err {e}")
+        rec["max_abs_err"] = max(rec["max_abs_err"], e)
+        nbytes = delta_bytes(table, bit_size, got[1].cpu().numpy())
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        ms = timer.ms(staged.run)
+        call_ms = timer.ms(lambda: delta.delta_page_streams(streams, table, bit_size,
+                                                            max_bits))
+        plain_ms = timer.ms(lambda: delta.delta_page_streams_plain(
+            streams, table, bit_size, max_bits))
+        one, two, t = abba(timer, staged.run, lambda: staged.run(two_launch=True))
+        tab = np.asarray(table).reshape(-1, 3)
+        blocks = int(((np.maximum(tab[:, 2] - 1, 0) + 127) // 128).sum())
+        say(f"[kernels] delta at the {label} shape ({tuple(streams.shape)} ring "
+            f"{bit_size}, {len(tab)} pages, counts {tab[:, 2].tolist()}, {blocks} "
+            f"blocks, max_bits {max_bits}, {int(got[1][-1])} body bytes): kernel "
+            f"{ms:.4f} ms (call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+            f"{bound:.6f} ms ({nbytes} bytes), {ms / bound:.2f}x the bound; "
+            f"look-back {one:.4f} ms, two launches {two:.4f} ms; turns "
+            + ", ".join(f"{x:.4f}" for x in t))
+        if label == "encodings":
+            rec.update(ms=ms, plain_ms=plain_ms, bytes=nbytes,
+                       shape=f"{tuple(streams.shape)} int64 streams, {len(tab)} "
+                             f"pages of {tab[:, 2].tolist()} values, max_bits "
+                             f"{max_bits} -> {int(got[1][-1])} body bytes")
+    return rec
 
 
 def flagship_path(torch) -> list:
@@ -1041,6 +1131,47 @@ def strings_setup(small: bool = False):
     return groups, schema, WriterProperties(codec=Codec.SNAPPY)
 
 
+def cfg3_setup(small: bool = False):
+    """BASELINE config 3's encode-side arm (bench.py:1233-1249, 1297-1299):
+    4 near-sorted int64 timestamps ts{i} (1.7e12 + cumsum(U[0, 50)) +
+    U[0, 5)) and 4 columns u{i} of 32-char hex strings of U[0, 2^62), as
+    ByteColumns, drawn in bench.py's order from seed 3; UNCOMPRESSED, the
+    dictionary off, delta fallback on, 640 KiB pages.  bench.py writes one
+    batch of 131,072 rows; here 524,288 rows are drawn (the same
+    distribution and row widths) and cut into four row groups of 131,072
+    (small: two of 8,192), so that the pipeline has work to overlap."""
+    from kpw_tpu_torch.core import (Codec, Schema, WriterProperties,
+                                    columns_from_arrays, leaf)
+    from kpw_tpu_torch.core.bytecol import ByteColumn
+
+    rows, n_groups = (8_192, 2) if small else (CFG3_ROWS, CFG3_GROUPS)
+    total = rows * n_groups
+    rng = np.random.default_rng(3)
+    base = 1_700_000_000_000
+    arrays = {f"ts{i}": (base + np.cumsum(rng.integers(0, 50, total))
+                         + rng.integers(0, 5, total)).astype(np.int64)
+              for i in range(4)}
+    hexes = {f"u{i}": [f"{v:032x}".encode() for v in rng.integers(0, 1 << 62, total)]
+             for i in range(4)}
+    schema = Schema([leaf(f"ts{i}", "int64") for i in range(4)]
+                    + [leaf(f"u{i}", "string") for i in range(4)])
+    groups = []
+    for at in range(0, total, rows):
+        batch = {k: v[at:at + rows] for k, v in arrays.items()}
+        batch |= {k: ByteColumn.from_list(v[at:at + rows]) for k, v in hexes.items()}
+        groups.append(columns_from_arrays(schema, batch))
+    return groups, schema, WriterProperties(
+        codec=Codec.UNCOMPRESSED, enable_dictionary=False, delta_fallback=True,
+        data_page_size=640 * 1024)
+
+
+SETUPS = {"writer": writer_setup, "levels": levels_setup, "nested": nested_setup,
+          "encodings": encodings_setup, "strings": strings_setup, "cfg3": cfg3_setup}
+# the paths whose delta pages are planned: one launch per ring with pages
+# (both rings: int64 values and string lengths) a row group
+DELTA_RINGS = {"encodings": 2, "cfg3": 2}
+
+
 def write_batches(encoder, groups, schema, props, pipeline: bool = False):
     """Write prebuilt batches one row group each; (file bytes, seconds,
     stage busy seconds).  The pipelined writer gets row_group_size=1, so
@@ -1106,15 +1237,16 @@ PATH_CALLS = {
     "nested": ("level_stats_multi",),
     # its BYTE_STREAM_SPLIT pages are transposed inside the native
     # assembler's call (OP_KINDS 5), as in the JAX package's encoder
-    "encodings": ("delta_pages_multi", "string_pack_jobs"),
+    "encodings": ("delta_page_streams", "string_pack_jobs"),
     "strings": ("pack_pages_multi", "string_pack_jobs"),
+    "cfg3": ("delta_page_streams",),
 }
 COUNTED = (("backend", "pack_pages_multi"), ("backend", "level_stats_multi"),
-           ("backend", "level_runs_multi"), ("backend", "delta_pages_multi"),
+           ("backend", "level_runs_multi"), ("backend", "delta_page_streams"),
            ("backend", "byte_stream_split_device"), ("packing", "_pad_rows"))
 # the device routes whose arguments are kept, to replay their kernels
 # against the plain versions on the main path's own inputs afterwards
-RECORDED = ("pack_pages_multi", "level_stats_multi", "delta_pages_multi")
+RECORDED = ("pack_pages_multi", "level_stats_multi", "delta_page_streams")
 
 
 def writer_path(name: str, groups, schema, props, device="cuda") -> dict:
@@ -1199,8 +1331,9 @@ def check_path_inputs(torch, name: str, recorded) -> dict:
     and string index pages: the index batch and its page table) and every
     level planner phase-A group (the stacked level batch and its page
     table, with the run count on) through the fused pack, and every delta
-    planner group (the ring's stacked streams and page table) through the
-    delta kernel.  Returns the largest error per kernel (0)."""
+    planner launch (the ring's stacked streams and page table) through the
+    delta kernel, byte for byte.  Returns the largest error per kernel
+    (0)."""
     from kpw_tpu_torch.ops import bitpack, delta, packing
 
     err = {"bitpack": 0, "delta": 0}
@@ -1220,18 +1353,15 @@ def check_path_inputs(torch, name: str, recorded) -> dict:
             err["bitpack"] = max(err["bitpack"], e)
             seen[label].append(f"{tuple(batch.shape)} P {len(ids)} bucket {bucket} "
                                f"width {width}")
-    for args, kwargs in recorded["delta_pages_multi"]:
-        streams, ids, starts, counts, bucket, bit_size = args[:6]
-        max_bits = (args[6] if len(args) > 6 else kwargs.get("max_bits")) or bit_size
-        table = packing.page_table(ids, starts, counts, streams.device)
-        got = delta.delta_pages(streams, table, bucket, bit_size, max_bits)
-        want = delta.delta_pages_plain(streams, table, bucket, bit_size, max_bits)
-        e = max(max_abs_err(torch, g, w) for g, w in zip(got, want))
+    for (streams, table, bit_size, max_bits), _ in recorded["delta_page_streams"]:
+        got = delta.delta_page_streams(streams, table, bit_size, max_bits)
+        want = delta.delta_page_streams_plain(streams, table, bit_size, max_bits)
+        e = same_streams(torch, got, want)
         check(e == 0, f"{name}: delta on the path's {bit_size}-bit ring streams "
-              f"{tuple(streams.shape)} bucket {bucket}: max err {e}")
+              f"{tuple(streams.shape)}, {len(table)} pages: max err {e}")
         err["delta"] = max(err["delta"], e)
-        seen["delta"].append(f"{tuple(streams.shape)} ring {bit_size} P {len(ids)} "
-                             f"bucket {bucket} max_bits {max_bits}")
+        seen["delta"].append(f"{tuple(streams.shape)} ring {bit_size} P {len(table)} "
+                             f"max_bits {max_bits}")
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     for label, groups in seen.items():
@@ -1290,14 +1420,37 @@ def string_probe(torch, inputs, device="cuda") -> None:
             f"(last column's phases {phases}), native hash {host * 1e3:.3f} ms")
 
 
-def group_breakdown(torch, name: str, batch, schema, props) -> None:
-    """Where one CudaChunkEncoder row group's time goes: the encoder's stage
-    spans (host clock) and the device profile."""
+def one_group_stages(batch, schema, props, runs: int = 5) -> dict:
+    """One row group through a fresh ``CudaChunkEncoder`` ``runs`` times:
+    the median of each encoder stage span, in ms (host clock; the write
+    ends in the assembly, which waits on the readbacks)."""
     from kpw_tpu_torch.core import ParquetFileWriter
     from kpw_tpu_torch.ops.backend import CudaChunkEncoder
     from kpw_tpu_torch.utils.tracing import StageTimer, set_tracer
 
-    timer = StageTimer()
+    spans: dict = {}
+    for _ in range(runs):
+        timer = StageTimer()
+        set_tracer(timer)
+        try:
+            w = ParquetFileWriter(io.BytesIO(), schema, props,
+                                  encoder=CudaChunkEncoder(props.encoder_options()))
+            w.write_batch(batch)
+            w.flush_row_group()
+        finally:
+            set_tracer(None)
+        for k, v in timer.summary().items():
+            spans.setdefault(k, []).append(v["seconds"] * 1e3)
+    return {k: round(statistics.median(v), 3) for k, v in spans.items()}
+
+
+def group_breakdown(torch, name: str, batch, schema, props) -> None:
+    """Where one CudaChunkEncoder row group's time goes: the median stage
+    spans of five runs (host clock), then one run's device profile."""
+    from kpw_tpu_torch.core import ParquetFileWriter
+    from kpw_tpu_torch.ops.backend import CudaChunkEncoder
+
+    stages = one_group_stages(batch, schema, props)
 
     def one_group():
         w = ParquetFileWriter(io.BytesIO(), schema, props,
@@ -1305,13 +1458,117 @@ def group_breakdown(torch, name: str, batch, schema, props) -> None:
         w.write_batch(batch)
         w.flush_row_group()
 
-    set_tracer(timer)
+    say(f"[{name}] one row group: median stage ms of 5 runs {stages}; profiled: "
+        + device_profile(torch, one_group))
+
+
+def capacity_readback_planner():
+    """The delta planner with the other readback, kept here only to time
+    against the encoder's: nothing at sync 1, and sync 2 copies each
+    launch's whole output capacity with its offsets and flag."""
+    from kpw_tpu_torch.ops import backend
+    from kpw_tpu_torch.ops.delta import check_budget
+
+    class CapacityReadback(backend._DeltaPlanner):
+        def sync1_device(self):
+            return []
+
+        def after_sync1(self, host):
+            pass
+
+        def device_outputs(self):
+            return [t for *_, outs in self._launches for t in outs]
+
+        def assemble(self, fetched):
+            exact = []
+            for g, (_, _, max_bits, _) in enumerate(self._launches):
+                out_h, offsets, over = fetched[3 * g: 3 * g + 3]
+                check_budget(over, max_bits)
+                self._offsets.append(offsets)
+                exact.append(out_h)
+                self.readback_bytes += offsets.nbytes + over.nbytes
+            super().assemble(exact)
+
+    return CapacityReadback
+
+
+def delta_readback(name: str, batch, schema, props) -> None:
+    """The delta planner's readback against the capacity readback
+    (:func:`capacity_readback_planner`) on one row group, in turns (exact,
+    capacity, capacity, exact).  Each turn prints the median
+    ``encode.launch`` + ``encode.bodies`` of five runs and the bytes the
+    planner read back, beside what the parent's planner outputs (mins,
+    widths and packed slots of every bucket block) came to for the same
+    pages, computed from their shapes."""
+    from kpw_tpu_torch.ops import backend
+    from kpw_tpu_torch.ops.delta import delta_bits_bucket
+    from kpw_tpu_torch.ops.packing import pad_bucket
+
+    planners = []
+    saved = backend._DeltaPlanner
+    kinds = {True: saved, False: capacity_readback_planner()}
+
+    def recording(base):
+        class Recording(base):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                planners.append(self)
+        return Recording
+
+    turns = []
     try:
-        prof = device_profile(torch, one_group)
+        for exact in (True, False, False, True):
+            backend._DeltaPlanner = recording(kinds[exact])
+            st = one_group_stages(batch, schema, props)
+            turns.append((exact, st.get("encode.launch", 0) + st.get("encode.bodies", 0),
+                          st.get("encode.bodies", 0), planners[-1].readback_bytes))
     finally:
-        set_tracer(None)
-    stages = {k: round(v["seconds"] * 1e3, 3) for k, v in timer.summary().items()}
-    say(f"[{name}] one row group, profiled: stage ms {stages}; {prof}")
+        backend._DeltaPlanner = saved
+    planner = planners[-1]
+    old = 0  # the parent's (bucket, ring) groups: P x blocks x (8 + 16 + 16 max_bits)
+    groups: dict = {}
+    for ring, items, _, _ in planner._launches:
+        rows = planner._streams[ring]
+        for row, _, va, vb in items:
+            s_ = rows[row]
+            bits = delta_bits_bucket(int(s_.max()) - int(s_.min()), ring)
+            key = (pad_bucket(vb - va), ring)
+            n, mb = groups.get(key, (0, 0))
+            groups[key] = (n + 1, max(mb, bits))
+    for (bucket, _), (n, mb) in groups.items():
+        old += n * (bucket // 128) * (8 + 16 + 16 * mb)
+    say(f"[{name}] delta readback, one row group ({len(planner._launches)} launches, "
+        f"{sum(len(t[1]) for t in planner._launches)} pages): "
+        + "; ".join(f"{'exact' if e else 'capacity'}: launch+bodies {t:.3f} ms "
+                    f"(bodies {bd:.3f}), {nb} bytes read back" for e, t, bd, nb in turns)
+        + f"; the parent planner's outputs for these pages: {old} bytes in "
+          f"{len(groups)} (bucket, ring) launches (computed)")
+
+
+def parent_bodies(root: str) -> None:
+    """``python3 chip_smoke.py --bodies ROOT``: one row group of the
+    ``encodings`` and ``cfg3`` paths through the ``kpw_tpu_torch`` package
+    found under ROOT (another checkout, such as the parent commit's), its
+    median stage spans of five runs; for comparing ``encode.bodies``
+    between two trees on one card in one call.  Prints no result line."""
+    import torch
+
+    check(torch.cuda.is_available(), "CUDA is not available")
+    sys.path.insert(0, os.path.abspath(root))
+    import kpw_tpu_torch
+
+    check(os.path.dirname(os.path.abspath(kpw_tpu_torch.__file__))
+          == os.path.join(os.path.abspath(root), "kpw_tpu_torch"),
+          f"kpw_tpu_torch loaded from {kpw_tpu_torch.__file__}, not {root}")
+    phase_card(torch)
+    from kpw_tpu_torch.ops.backend import CudaChunkEncoder
+
+    for name in ("encodings", "cfg3"):
+        groups, schema, props = SETUPS[name]()
+        write_batches(CudaChunkEncoder(props.encoder_options()),
+                      *SETUPS[name](small=True))
+        say(f"[bodies {root}] {name}: one row group, median stage ms of 5 runs "
+            f"{one_group_stages(groups[0], schema, props)}")
 
 
 # ---------------------------------------------------------------------------
@@ -1329,11 +1586,11 @@ def main() -> None:
         fail(f"cannot import kpw_tpu_torch from {root}: {e}")
     from kpw_tpu_torch.ops.backend import CudaChunkEncoder
     from kpw_tpu_torch.ops.bitpack import pack_pages
-    from kpw_tpu_torch.ops.delta import delta_pages
+    from kpw_tpu_torch.ops.delta import delta_page_streams
     from kpw_tpu_torch.ops.rank import hist_dict, rank_pages
 
     counters = {"bitpack": pack_pages, "hist": hist_dict, "rank": rank_pages,
-                "delta": delta_pages}
+                "delta": delta_page_streams}
 
     def drive(path: str, needs: tuple, fn, *args):
         """Run one main path with every launch count set to 0 just before it
@@ -1355,24 +1612,29 @@ def main() -> None:
     recs = phase_kernels(torch, timer)
     cases, launches = drive("flagship", ("bitpack", "hist", "rank"),
                             flagship_path, torch)
-    paths = {"writer": (writer_setup, ("bitpack",)),
-             "levels": (levels_setup, ("bitpack",)),
-             "nested": (nested_setup, ("bitpack",)),
-             "encodings": (encodings_setup, ("delta",)),
-             "strings": (strings_setup, ("bitpack",))}
-    inputs = {}
-    for name, (setup, needs) in paths.items():
+    needs = {"writer": ("bitpack",), "levels": ("bitpack",), "nested": ("bitpack",),
+             "encodings": ("delta",), "strings": ("bitpack",), "cfg3": ("delta",)}
+    inputs, delta_shapes = {}, {}
+    for name, setup in SETUPS.items():
         inputs[name] = setup()
         # one small run first, so that the measured one pays no one-time
         # set-up (allocator growth, library loads); it counts no launch
         write_batches(CudaChunkEncoder(inputs[name][2].encoder_options()),
                       *setup(small=True))
-        (calls, recorded), got = drive(name, needs, writer_path, name,
+        (calls, recorded), got = drive(name, needs[name], writer_path, name,
                                        *inputs[name])
         # the path's kernels replayed on its own inputs, after its launches
         # were read
         for kernel, e in check_path_inputs(torch, name, recorded).items():
             recs[kernel]["max_abs_err"] = max(recs[kernel]["max_abs_err"], e)
+        if name in DELTA_RINGS:
+            # one launch per ring with pages a row group, for both card files
+            want = DELTA_RINGS[name] * 2 * len(inputs[name][0])
+            check(got["delta"] == want, f"{name}: {got['delta']} delta launches, "
+                  f"not {want} (one per ring a row group, two card files)")
+            # its first row group's 64-bit ring launch, to time the kernel at
+            delta_shapes[name] = next(args for args, _ in recorded["delta_page_streams"]
+                                      if args[2] == 64)
         del recorded
         if name == "writer":  # the fused pack: one launch a job, no padded copy
             check(got["bitpack"] == calls["pack_pages_multi"]
@@ -1384,12 +1646,18 @@ def main() -> None:
     say(f"[main path] launches: {launches}")
 
     # timing and profiles after the counted runs, so they count no launch
+    recs["delta"] = delta_record(torch, timer, recs["delta"]["max_abs_err"],
+                                 delta_shapes)
+    summarize("delta", recs["delta"])
+    del delta_shapes
     flagship_timing(torch, timer, cases)
     taxi, schema, props = inputs["writer"]
     dictionary_routes(torch, timer, taxi[0])
     taxi_pack_jobs(torch, timer, schema, props, taxi[0])
     for name, (groups, schema, props) in inputs.items():
         group_breakdown(torch, name, groups[0], schema, props)
+        if name in DELTA_RINGS:
+            delta_readback(name, groups[0], schema, props)
     string_probe(torch, inputs)
 
     out = []
@@ -1407,4 +1675,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--bodies"] and len(sys.argv) == 3:
+        parent_bodies(sys.argv[2])
+    else:
+        main()

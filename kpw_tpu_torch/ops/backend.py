@@ -9,18 +9,19 @@ syncs, as ``kpw_tpu/ops/backend.py:TpuChunkEncoder`` does:
 - phase A: every rep/def level page's run statistics, each packed in the
   same fused launch, one per (bucket, width) group (``_LevelPlanner``);
   every delta page of a statically delta-encoded column, one launch per
-  (bucket, ring) group (``_DeltaPlanner``, the ``csrc/delta.cu`` kernel on
-  a card); every eligible column's dictionary build, batched
-  (``ops.dictionary.build_dictionaries``);
+  ring that writes the pages' finished block streams (``_DeltaPlanner``,
+  the ``csrc/delta.cu`` kernel on a card); every eligible column's
+  dictionary build, batched (``ops.dictionary.build_dictionaries``);
 - sync 1: the unique counts and the level statistics, from which the
-  dictionary-vs-plain and bit-pack-vs-RLE decisions follow;
+  dictionary-vs-plain and bit-pack-vs-RLE decisions follow, and the delta
+  pages' byte offsets;
 - phase B: every dictionary data page's window slice, mask, long-run sum
   and bit-pack, one fused launch per (batch, bucket, width) job
   (``ops.packing.pack_pages_multi``), and the run lists of the run-heavy
   level pages (``ops.levels.level_runs_multi``), launched for all columns
   before anything is read;
 - sync 2: one bulk readback of the packed pages, run statistics,
-  dictionary keys, level pages and delta outputs;
+  dictionary keys, level pages and the delta pages' bytes;
 - sync 3 (rare): the dictionary pages whose long runs need the exact mixed
   RLE stream fetch their index windows (``gather_index_slices``).
 
@@ -58,9 +59,9 @@ from ..device import resolve_device, to_host
 from ..native.encoder import NativeChunkEncoder
 from ..utils.tracing import stage
 from .bss import byte_stream_split_device
-from .delta import (assemble_delta_page, delta_binary_packed_device,
-                    delta_bits_bucket, delta_length_byte_array_device,
-                    delta_pages_multi)
+from .delta import (check_budget, delta_binary_packed_device, delta_bits_bucket,
+                    delta_length_byte_array_device, delta_page_streams,
+                    page_parts)
 from .dictionary import DictBuildHandle, build_dictionaries
 from .levels import level_runs_multi, level_stats_multi
 from .packing import gather_index_slices, pack_page_host, pack_pages_multi, pad_bucket
@@ -401,18 +402,31 @@ class _StringDictPlanner:
 
 class _DeltaPlanner:
     """Batched device delta encoding of a row group's non-dictionary pages
-    (BASELINE config 3): one ``delta_pages_multi`` launch per (bucket, ring)
-    group, launched in phase A and read back at sync 2.
+    (BASELINE config 3): one ``delta_page_streams`` launch per ring with
+    pages (at most two a row group), in phase A.  Each launch writes the
+    finished block stream of every page of its ring back to back, so a
+    page is its header (known on the host) and a view of the readback.
 
     Covers chunks whose encoding is known before the row group is encoded
     (dictionary disabled or not wanted, decision pinned or forced):
     INT32/INT64 columns pack their values, byte-array columns the length
-    vector of DELTA_LENGTH_BYTE_ARRAY (its payload is a host concat)."""
+    vector of DELTA_LENGTH_BYTE_ARRAY, whose page is then [header, length
+    stream view, payload view] with no copy of the payload.
+
+    Readback: each launch's page offsets and width flag join sync 1, so
+    that sync 2 copies exactly the bytes written (as fast as copying the
+    whole output capacity at sync 2 in the chip smoke run's turns, with a
+    fifth of the bytes).  ``readback_bytes`` counts what the planner's
+    outputs took off the card."""
 
     def __init__(self, encoder: "CudaChunkEncoder", chunks) -> None:
-        self.plans: dict[int, tuple] = {}  # id(chunk) -> (chunk, {(va, vb): bytes})
+        # id(chunk) -> (chunk, {(va, vb): page parts})
+        self.plans: dict[int, tuple] = {}
         self._jobs = []  # (ring row, chunk, bit_size, pages)
-        self._groups = []
+        self._launches = []  # (ring, items, max_bits, (out, offsets, over))
+        self._fetch: list = []  # sync 2's tensors: the bytes written
+        self._offsets: list = []  # host offsets per launch
+        self.readback_bytes = 0
         self.empty = True
         opts = encoder.options
         if not (opts.delta_fallback or opts.adaptive_encodings or opts.encodings):
@@ -464,37 +478,56 @@ class _DeltaPlanner:
                     stacked[r, : len(s)] = s
                 dev[ring] = torch.from_numpy(stacked).to(encoder.device)
         # the host-known value range of each stream bounds its miniblock
-        # widths, and so the packed slot a miniblock needs
+        # widths, and so the output a block needs
         row_bits = {(ring, r): delta_bits_bucket(
             int(s.max()) - int(s.min()) if len(s) else 0, ring)
             for ring, rows in streams.items() for r, s in enumerate(rows)}
-        by_key: dict[tuple[int, int], list] = {}
+        by_ring: dict[int, list] = {}
         for row, chunk, bit_size, pages in self._jobs:
-            for va, vb in pages:
-                by_key.setdefault((pad_bucket(vb - va), bit_size), []).append(
-                    (row, chunk, va, vb))
-        for (bucket, bit_size), items in by_key.items():
-            # the group's budget is its widest member's: one launch
-            max_bits = max(row_bits[bit_size, row] for row, _, _, _ in items)
-            outs = delta_pages_multi(
-                dev[bit_size], [row for row, _, _, _ in items],
-                [va for _, _, va, _ in items],
-                [vb - va for _, _, va, vb in items], bucket, bit_size, max_bits)
-            self._groups.append((items, bit_size, outs, max_bits))
+            by_ring.setdefault(bit_size, []).extend(
+                (row, chunk, va, vb) for va, vb in pages)
+        for ring, items in by_ring.items():
+            # the launch's budget is its widest stream's
+            max_bits = max(row_bits[ring, row] for row, _, _, _ in items)
+            table = np.array([(row, va, vb - va) for row, _, va, vb in items],
+                             np.int64)
+            outs = delta_page_streams(dev[ring], table, ring, max_bits)
+            self._launches.append((ring, items, max_bits, outs))
+
+    def sync1_device(self) -> list:
+        """Each launch's offsets and width flag, for sync 1."""
+        return [t for *_, (_, offsets, over) in self._launches
+                for t in (offsets, over)]
+
+    def after_sync1(self, host: list) -> None:
+        """Refuse a launch whose width bound was wrong, and cut each
+        launch's output to the bytes written for sync 2."""
+        for g, (_, _, max_bits, (out, _, _)) in enumerate(self._launches):
+            offsets, over = host[2 * g], host[2 * g + 1]
+            check_budget(over, max_bits)
+            self._offsets.append(offsets)
+            self._fetch.append(out[:int(offsets[-1])])
+            self.readback_bytes += offsets.nbytes + over.nbytes
 
     def device_outputs(self) -> list:
-        return [t for _, _, outs, _ in self._groups for t in outs]
+        return self._fetch
 
     def assemble(self, fetched: list) -> None:
-        for g, (items, bit_size, _, max_bits) in enumerate(self._groups):
-            mins, widths, packed = fetched[3 * g: 3 * g + 3]
-            for r, (row, chunk, va, vb) in enumerate(items):
-                first = int(self._streams[bit_size][row][va])  # ring type already
-                body = assemble_delta_page(first, vb - va, mins[r], widths[r],
-                                           packed[r], bit_size, max_bits=max_bits)
-                if isinstance(chunk.values, ByteColumn):
-                    body += chunk.values[va:vb].payload()
-                self.plans.setdefault(id(chunk), (chunk, {}))[1][(va, vb)] = body
+        """Every planned page as parts: [header, view of its block stream]
+        (and the payload view of a DELTA_LENGTH_BYTE_ARRAY page)."""
+        for g, (ring, items, _, _) in enumerate(self._launches):
+            out_h = fetched[g]
+            self.readback_bytes += out_h.nbytes
+            offs = self._offsets[g].tolist()
+            rows = self._streams[ring]
+            for p, (row, chunk, va, vb) in enumerate(items):
+                parts = page_parts(rows[row][va], vb - va, out_h, offs[p],
+                                   offs[p + 1])
+                values = chunk.values
+                if isinstance(values, ByteColumn):
+                    o = values.offsets
+                    parts.append(memoryview(values.data)[int(o[va]):int(o[vb])])
+                self.plans.setdefault(id(chunk), (chunk, {}))[1][(va, vb)] = parts
 
 
 class CudaChunkEncoder(NativeChunkEncoder):
@@ -615,12 +648,15 @@ class CudaChunkEncoder(NativeChunkEncoder):
         for batch, _ in handles:
             if batch not in batches:
                 batches.append(batch)
-        fetched = to_host(  # sync 1: unique counts + level statistics
-            [b.counts_device() for b in batches] + lvl.stats_device())
+        lvl_stats = lvl.stats_device()
+        fetched = to_host(  # sync 1: unique counts, level stats, delta offsets
+            [b.counts_device() for b in batches] + lvl_stats + dlt.sync1_device())
         for b, kv in zip(batches, fetched):
             b._k_host = kv
+        at = len(batches) + len(lvl_stats)
         if not lvl.empty:
-            lvl.launch_phase_b(fetched[len(batches):])
+            lvl.launch_phase_b(fetched[len(batches):at])
+        dlt.after_sync1(fetched[at:])
 
         col_plans = []
         jobs: dict = {}  # (batch_id, bucket, width) -> (batch, [page rows])
@@ -777,27 +813,28 @@ class CudaChunkEncoder(NativeChunkEncoder):
                 return hit[1].get(key)
         return None
 
-    def _planned_body(self, chunk, va: int, vb: int) -> bytes | None:
-        """The delta planner's body of page (va, vb), or None."""
+    def _planned_parts(self, chunk, va: int, vb: int) -> list | None:
+        """The delta planner's parts of page (va, vb), or None."""
         return self._plan_entry(getattr(self, "_delta_plans", None), chunk,
                                 (va, vb))
 
     def _values_page_body(self, chunk, va: int, vb: int, pt: int,
                           encoding: int) -> bytes:
-        """The planner's delta body of a page, else the per-page route."""
-        body = self._planned_body(chunk, va, vb)
-        if body is not None:
-            return body
+        """The planner's delta page joined, else the per-page route."""
+        parts = self._planned_parts(chunk, va, vb)
+        if parts is not None:
+            return b"".join(parts)
         return super()._values_page_body(chunk, va, vb, pt, encoding)
 
     def _values_page_parts(self, chunk, va: int, vb: int, pt: int,
                            encoding: int) -> list:
-        """Planned bodies first: without this, the native superclass's
-        DELTA_LENGTH_BYTE_ARRAY parts route would re-encode on the host
-        what the device plan already produced."""
-        body = self._planned_body(chunk, va, vb)
-        if body is not None:
-            return [body]
+        """Planned pages first, as their parts (a fresh list: callers
+        insert the level blob in front): without this, the native
+        superclass's DELTA_LENGTH_BYTE_ARRAY parts route would re-encode on
+        the host what the device plan already produced."""
+        parts = self._planned_parts(chunk, va, vb)
+        if parts is not None:
+            return list(parts)
         return super()._values_page_parts(chunk, va, vb, pt, encoding)
 
     def _planned_level_entry(self, chunk, a: int, b: int):

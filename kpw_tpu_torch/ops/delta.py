@@ -1,22 +1,24 @@
 """DELTA_BINARY_PACKED on the device: the hand-written CUDA kernel
-``csrc/delta.cu`` and its plain PyTorch version, and the host assembly of
-the page stream (``core.encodings.delta_binary_packed_encode`` is the byte
+``csrc/delta.cu`` and its plain PyTorch version, and the page header the
+host adds (``core.encodings.delta_binary_packed_encode`` is the byte
 oracle).
 
-The format: blocks of 128 deltas, 4 miniblocks of 32, a signed (zigzag)
-minimum delta a block, a bit width a miniblock, and each miniblock's
-``delta - min`` values packed LSB-first at its own width.  The
-data-parallel part — ring deltas, block minima, miniblock widths and the
-pack — runs in one launch for every page of a (bucket, ring) group
-(:func:`delta_pages`); the host writes the header and the per-block bytes in
-O(blocks) (:func:`assemble_delta_page`).
+The format: a header (block size 128, 4 miniblocks, the value count, the
+zigzag first value), then blocks of 128 deltas, 4 miniblocks of 32: a
+signed (zigzag) minimum delta a block, a bit width a miniblock, and each
+miniblock's ``delta - min`` values packed LSB-first at its own width.  One
+launch (:func:`delta_page_streams`) writes the finished block stream of
+every page of a ring, back to back, with each page's byte offset; the host
+adds the header, which it knows already, and hands the page on as
+[header, view of the readback] (:func:`page_parts`): no Python work per
+block.
 
 Values travel in their ring's own type: int64 for the 64-bit ring, int32
 for the 32-bit ring, whose deltas wrap at 32 bits.  (The JAX package splits
 64-bit values into (hi, lo) uint32 planes because the TPU has no int64.)
-Each miniblock's packed slot is ``4 * max_bits`` bytes, where ``max_bits``
-is a bound on every width the host derives from the stream's value range
-(:func:`delta_bits_bucket`), so the readback stays small.
+``max_bits``, a bound on every miniblock width that the host derives from
+the stream's value range (:func:`delta_bits_bucket`), sizes the output; a
+wider miniblock means the bound was wrong, and :func:`check_budget` raises.
 """
 
 from __future__ import annotations
@@ -30,11 +32,11 @@ from ..core.bytecol import lens_and_payload
 from ..core.thrift import varint_bytes, zigzag
 from ..device import cuda_launch_args, resolve_device, to_host
 from . import _build
-from .packing import page_table
 
 _BLOCK = 128
 _MINI = 4
 _MB = 32  # values per miniblock
+_VARINT_MAX = 10  # bytes of a 64-bit ULEB128 varint
 
 _fn = None
 
@@ -42,16 +44,18 @@ _fn = None
 def _kernel():
     global _fn
     if _fn is None:
-        _fn = _build.function("delta", "kpw_delta_pages", [
+        _fn = _build.function("delta", "kpw_delta_streams", [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_ulonglong, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_void_p])
     return _fn
 
 
-# Width-budget buckets: the slot size follows the bucket, so finer steps at
-# the narrow end (near-sorted timestamps, string lengths) matter most.
+# Width-budget buckets: the output capacity follows the bucket, so finer
+# steps at the narrow end (near-sorted timestamps, string lengths) matter
+# most.
 _DELTA_BITS_BUCKETS = (8, 16, 24, 32, 48, 64)
 
 
@@ -79,194 +83,276 @@ def _ring_dtype(bit_size: int) -> torch.dtype:
     raise ValueError(f"bit_size must be 32 or 64, got {bit_size}")
 
 
-def _check(streams: torch.Tensor, table: torch.Tensor, bucket: int,
-           bit_size: int, max_bits: int) -> None:
+def block_bytes(max_bits: int) -> int:
+    """The most bytes one block can take when no width exceeds
+    ``max_bits``: the varint, four widths and four miniblocks."""
+    return _VARINT_MAX + _MINI + _MINI * 4 * max_bits
+
+
+def _plan(streams: torch.Tensor, table, bit_size: int, max_bits: int):
+    """Check the arguments; returns the host page table (P, 3) int64, the
+    block prefix bstart (P + 1) int64 and the output capacity in bytes."""
     if streams.dim() != 2 or streams.dtype != _ring_dtype(bit_size):
         raise TypeError(f"streams must be 2-D {_ring_dtype(bit_size)} for the "
                         f"{bit_size}-bit ring, got {tuple(streams.shape)} "
                         f"{streams.dtype}")
-    if bucket <= 0 or bucket % _BLOCK:
-        raise ValueError(f"bucket must be a positive multiple of {_BLOCK}, got {bucket}")
     if not 1 <= max_bits <= bit_size:
         raise ValueError(f"max_bits must be 1..{bit_size}, got {max_bits}")
-    if table.dim() != 2 or table.shape[1] != 3 or table.dtype != torch.int32:
-        raise ValueError("the page table must be (P, 3) int32 (row, start, count), "
-                         f"got {tuple(table.shape)} {table.dtype}")
+    if isinstance(table, torch.Tensor):
+        if table.device.type != "cpu":
+            raise ValueError("the page table must be on the host: its counts "
+                             "size the launch")
+        table = table.numpy()
+    tab = np.asarray(table, np.int64).reshape(-1, 3)
+    if tab.size and (tab.min() < 0 or tab.max() > np.iinfo(np.int32).max):
+        raise ValueError("the page table's rows, starts and counts must be "
+                         "int32 and >= 0")
+    blocks = (np.maximum(tab[:, 2] - 1, 0) + _BLOCK - 1) // _BLOCK
+    bstart = np.concatenate([[0], np.cumsum(blocks)]).astype(np.int64)
+    if bstart[-1] > np.iinfo(np.int32).max:
+        raise ValueError("too many delta blocks for one launch")
+    return tab, bstart, int(bstart[-1]) * block_bytes(max_bits)
 
 
-def delta_pages(streams: torch.Tensor, table: torch.Tensor, bucket: int,
-                bit_size: int, max_bits: int):
-    """The delta device phase of P page windows in one launch.
+def delta_page_streams(streams: torch.Tensor, table, bit_size: int,
+                       max_bits: int):
+    """The DELTA_BINARY_PACKED block streams of P page windows in one
+    launch.
 
     ``streams`` is a (rows, ld) batch, int64 for the 64-bit ring or int32
-    for the 32-bit ring; page p is ``table[p] = (row, start, count)`` (int32,
-    on the same device): window value i is ``streams[row, start + i]`` (0
-    past ld), and delta i, valid for i < count - 1, is value i+1 - value i
-    in the ring.  Returns, per block of 128 deltas: mins (P, bucket/128)
-    int64, the signed minimum of the valid deltas (a block without one
-    keeps its first delta); widths (P, bucket/128, 4) int32, each
-    miniblock's bit width of ``delta - min`` (0 without a valid delta); and
-    packed (P, bucket/128, 4, 4*max_bits) uint8, each miniblock's 32
-    relative deltas packed LSB-first at its width, zero past it and cut at
-    the slot's end.  A CUDA tensor launches ``csrc/delta.cu``; a CPU tensor
-    runs :func:`delta_pages_plain`."""
-    _check(streams, table, bucket, bit_size, max_bits)
+    for the 32-bit ring; page p is ``table[p] = (row, start, count)``, a
+    host (P, 3) array: window value i is ``streams[row, start + i]`` (0 past
+    ld), and delta i, for i < count - 1, is value i+1 - value i in the ring.
+    Returns ``(out, offsets, over)``: ``out`` (capacity,) uint8 holds every
+    page's blocks back to back (for each block the varint of the zigzag
+    signed minimum delta, the four miniblock widths, and each miniblock of
+    width w > 0 packed LSB-first in 4 w bytes), page p at
+    ``[offsets[p], offsets[p+1])`` of the (P + 1,) int64 ``offsets``;
+    capacity is ``block_bytes(max_bits)`` a block, and bytes past it are
+    not written.  ``over`` (1,) int64 is 0, or the widest miniblock width
+    above ``max_bits``, in which case the streams are cut (see
+    :func:`check_budget`).  Contents of ``out`` past ``offsets[P]`` are
+    undefined.  A CUDA tensor launches ``csrc/delta.cu``; a CPU tensor runs
+    :func:`delta_page_streams_plain`."""
     if streams.device.type == "cpu":
-        return delta_pages_plain(streams, table, bucket, bit_size, max_bits)
+        return delta_page_streams_plain(streams, table, bit_size, max_bits)
     if streams.device.type != "cuda":
         raise ValueError(f"unsupported device {streams.device}")
-    kernel = _kernel()
-    if not streams.is_contiguous():
-        raise ValueError("streams must be contiguous")
-    if table.device != streams.device or not table.is_contiguous():
-        raise ValueError("the page table must be contiguous on the streams' device")
-    P, blocks = table.shape[0], bucket // _BLOCK
+    return DeltaLaunch(streams, table, bit_size, max_bits).run()
+
+
+delta_page_streams.launches = 0
+
+
+class DeltaLaunch:
+    """One launch of ``csrc/delta.cu`` staged on the card: the page table
+    and block prefix uploaded, the outputs and the look-back state
+    allocated.  :meth:`run` clears the state and launches, so a staged
+    launch can be timed alone; :func:`delta_page_streams` is one staging
+    and one run."""
+
+    def __init__(self, streams: torch.Tensor, table, bit_size: int,
+                 max_bits: int) -> None:
+        tab, bstart, capacity = _plan(streams, table, bit_size, max_bits)
+        self._kernel = _kernel()
+        if not streams.is_contiguous():
+            raise ValueError("streams must be contiguous")
+        dev = streams.device
+        self.streams, self.bit_size, self.max_bits = streams, bit_size, max_bits
+        self.P, self.nblocks, self.capacity = tab.shape[0], int(bstart[-1]), capacity
+        self.out = torch.empty(capacity, dtype=torch.uint8, device=dev)
+        # offsets, then the look-back states, the ticket and the width flag
+        self._meta = None
+        self._state = torch.empty(self.P + 1 + self.nblocks + 2, dtype=torch.int64,
+                                  device=dev)
+        if self.nblocks:  # one upload: the page table, then the block prefix
+            self._meta = torch.from_numpy(np.concatenate([tab.reshape(-1), bstart])
+                                          .astype(np.int32)).to(dev)
+
+    def run(self, two_launch: bool = False):
+        """Launch; returns ``(out, offsets, over)`` as
+        :func:`delta_page_streams` does.  ``two_launch`` runs the kernel's
+        two-launch route instead (block lengths, a PyTorch exclusive scan,
+        the write), kept only to time against the single-pass look-back."""
+        P, nblocks = self.P, self.nblocks
+        offsets, over = self._state[:P + 1], self._state[-1:]
+        if nblocks == 0:  # nothing to launch: every page has at most one value
+            self._state.zero_()
+            return self.out, offsets, over
+        state = self._state[P + 1:]
+        state.zero_()
+        device, stream = cuda_launch_args(self.streams)
+        rows, ld = self.streams.shape
+        args = (self.streams.data_ptr(), rows, ld, int(self.bit_size == 64),
+                self._meta.data_ptr(), P, nblocks, self.max_bits, self.capacity,
+                self.out.data_ptr(), offsets.data_ptr(), state.data_ptr())
+        if two_launch:
+            lengths = torch.empty(nblocks, dtype=torch.int64, device=self.out.device)
+            rc = self._kernel(*args, 1, lengths.data_ptr(), device, stream)
+            if not rc:
+                scan = torch.cumsum(lengths, 0) - lengths
+                rc = self._kernel(*args, 2, scan.data_ptr(), device, stream)
+        else:
+            rc = self._kernel(*args, 0, None, device, stream)
+        if rc:
+            raise RuntimeError(f"kpw_delta_streams launch failed: CUDA error {rc}")
+        delta_page_streams.launches += 1
+        return self.out, offsets, over
+
+
+def delta_page_streams_two_launch(streams: torch.Tensor, table, bit_size: int,
+                                  max_bits: int):
+    """:func:`delta_page_streams` on the card as two launches of the same
+    kernel with a PyTorch exclusive scan between them (block lengths, then
+    the write at the scanned offsets) instead of the single-pass look-back.
+    The encoder does not call it; it is kept to time the two routes
+    against each other.  CUDA tensors only."""
+    if streams.device.type != "cuda":
+        raise ValueError(f"unsupported device {streams.device}")
+    return DeltaLaunch(streams, table, bit_size, max_bits).run(two_launch=True)
+
+
+def _block_deltas(streams: torch.Tensor, tab: np.ndarray, bucket: int,
+                  bit_size: int):
+    """Each page's ring deltas as (P, bucket/128, 128) int64 (32-bit ring
+    values sign-extended) and their validity mask."""
     dev = streams.device
-    mins = torch.empty((P, blocks), dtype=torch.int64, device=dev)
-    widths = torch.empty((P, blocks, _MINI), dtype=torch.int32, device=dev)
-    packed = torch.empty((P, blocks, _MINI, 4 * max_bits), dtype=torch.uint8,
-                         device=dev)
-    if P == 0:  # nothing to launch
-        return mins, widths, packed
-    device, stream = cuda_launch_args(streams)
+    P, blocks = tab.shape[0], bucket // _BLOCK
     rows, ld = streams.shape
-    rc = kernel(streams.data_ptr(), rows, ld, int(bit_size == 64),
-                table.data_ptr(), P, bucket, max_bits, mins.data_ptr(),
-                widths.data_ptr(), packed.data_ptr(), device, stream)
-    if rc:
-        raise RuntimeError(f"kpw_delta_pages launch failed: CUDA error {rc}")
-    delta_pages.launches += 1
-    return mins, widths, packed
-
-
-delta_pages.launches = 0
-
-
-def delta_pages_plain(streams: torch.Tensor, table: torch.Tensor, bucket: int,
-                      bit_size: int, max_bits: int):
-    """:func:`delta_pages` in plain PyTorch on any device: the windows'
-    ring deltas, block minima and widths as tensor ops, and the pack as a
-    scatter of every relative delta's bits to its stream position
-    (``bit_size`` bit cells a value)."""
-    _check(streams, table, bucket, bit_size, max_bits)
-    dev = streams.device
-    P, blocks = table.shape[0], bucket // _BLOCK
-    rows, ld = streams.shape
-    t = table.to(torch.int64)
+    t = torch.from_numpy(tab).to(dev)
     row, first, count = t[:, 0:1], t[:, 1:2], t[:, 2:3]
     col = first + torch.arange(bucket + 1, device=dev)
     if ld and rows:
         w = streams[row.clamp(0, rows - 1), col.clamp(max=ld - 1)].to(torch.int64)
-        w = torch.where((col < ld) & (row >= 0) & (row < rows), w, 0)
+        w = torch.where((col < ld) & (row < rows), w, 0)
     else:
         w = torch.zeros(col.shape, dtype=torch.int64, device=dev)
     d = w[:, 1:] - w[:, :-1]  # int64 arithmetic wraps: the 64-bit ring
     if bit_size == 32:  # back into the 32-bit ring, as signed values
         d = ((d + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
     valid = (torch.arange(bucket, device=dev) < count - 1).reshape(P, blocks, _BLOCK)
-    d = d.reshape(P, blocks, _BLOCK)
+    return d.reshape(P, blocks, _BLOCK), valid
+
+
+def delta_page_streams_plain(streams: torch.Tensor, table, bit_size: int,
+                             max_bits: int):
+    """:func:`delta_page_streams` in plain PyTorch on any device: the
+    windows' ring deltas, block minima and widths as tensor ops, each
+    miniblock's packed words as shifted values summed (their bit ranges are
+    disjoint), the zigzag varint bytes, and the compaction of every block's
+    bytes with a byte mask, in page order, with the offsets from a
+    ``cumsum`` of the block lengths."""
+    tab, bstart, capacity = _plan(streams, table, bit_size, max_bits)
+    dev = streams.device
+    P = tab.shape[0]
+    blocks = int(np.diff(bstart).max()) if P else 0
+    out = torch.zeros(capacity, dtype=torch.uint8, device=dev)
+    if blocks == 0:
+        zeros = torch.zeros(P + 2, dtype=torch.int64, device=dev)
+        return out, zeros[:P + 1], zeros[P + 1:]
+    d, valid = _block_deltas(streams, tab, blocks * _BLOCK, bit_size)
+    have = torch.from_numpy(np.diff(bstart)).to(dev)  # blocks a page holds
+    held = torch.arange(blocks, device=dev) < have[:, None]  # (P, blocks)
     mins = torch.where(valid, d, torch.iinfo(torch.int64).max).min(-1).values
-    mins = torch.where(valid[..., 0], mins, d[..., 0])
+    mins = torch.where(held, mins, 0)
     rel = d - mins[..., None]
     if bit_size == 32:
         rel = rel & 0xFFFFFFFF
     rel = torch.where(valid, rel, 0).reshape(P, blocks, _MINI, _MB)
-    j = torch.arange(bit_size, device=dev)
-    bits = ((rel[..., None] >> j) & 1).to(torch.uint8)  # (..., 32, bit_size)
-    widths = (bits.to(torch.int32) * (j + 1).to(torch.int32)).amax(dim=(-1, -2))
-    # bit j of value i lands at stream bit i * width + j when j < width;
-    # positions past the slot's 32 * max_bits bits go to a dropped cell
-    slot_bits = 32 * max_bits
+    # width = bit length of the miniblock's largest rel as an unsigned
+    # value: flipping the sign bit makes signed order the unsigned one
+    top = torch.iinfo(torch.int64).min
+    mx = (rel ^ top).amax(-1) ^ top  # (P, B, 4)
+    j = torch.arange(64, device=dev)
+    widths = torch.where(mx < 0, 64, ((mx[..., None] >> j) != 0).sum(-1))
+    over = widths[held].max()
+    over = torch.where(over > max_bits, over, 0).reshape(1)
+    # packed words k < W of each miniblock: value i lands at bit i*w - 32k
+    W = max(int(widths.max()), 1)
+    k = torch.arange(W, device=dev)
     i = torch.arange(_MB, device=dev)[:, None]
-    wd = widths[..., None, None].to(torch.int64)
-    pos = torch.where(j < wd, i * wd + j, slot_bits).clamp(max=slot_bits)
-    stream = torch.zeros((P, blocks, _MINI, slot_bits + 1), dtype=torch.uint8,
-                         device=dev)
-    stream.scatter_(-1, pos.reshape(P, blocks, _MINI, -1),
-                    bits.reshape(P, blocks, _MINI, -1))
-    stream = stream[..., :slot_bits].reshape(P, blocks, _MINI, 4 * max_bits, 8)
-    weights = torch.arange(8, dtype=torch.uint8, device=dev)
-    packed = (stream << weights).sum(-1, dtype=torch.uint8)
-    return mins, widths, packed
+    wd = widths[..., None, None]  # (P, B, 4, 1, 1)
+    s = i * wd - 32 * k  # (P, B, 4, 32, W)
+    lo = s.clamp(0, 32)
+    hi = (s + wd).clamp(0, 32)
+    mask = (torch.ones_like(s) << hi) - (torch.ones_like(s) << lo)
+    v = rel[..., None]
+    c = torch.where(s >= 0, v << s.clamp(0, 63), v >> (-s).clamp(0, 63)) & mask
+    words = c.sum(-2)  # (P, B, 4, W)
+    packed = ((words[..., None] >> (8 * torch.arange(4, device=dev))) & 0xFF)
+    packed = packed.reshape(P, blocks, _MINI, 4 * W).to(torch.uint8)
+    pmask = torch.arange(4 * W, device=dev) < 4 * widths[..., None]
+    # the varint of zigzag(min): 7-bit groups, low first
+    z = (mins << 1) ^ (mins >> 63)
+    g = torch.arange(_VARINT_MAX, device=dev)
+    groups = torch.where(g < 9, (z[..., None] >> (7 * g).clamp(max=63)) & 0x7F,
+                         (z[..., None] < 0).to(torch.int64))
+    vlen = torch.where(groups != 0, g + 1, 1).amax(-1)  # (P, B)
+    groups = torch.where(g < vlen[..., None] - 1, groups | 0x80, groups)
+    vmask = g < vlen[..., None]
+    # every block's bytes in order, masked, compacted in page order
+    byts = torch.cat([groups.to(torch.uint8), widths.to(torch.uint8),
+                      packed.reshape(P, blocks, -1)], dim=-1)
+    keep = torch.cat([vmask, torch.ones_like(widths, dtype=torch.bool),
+                      pmask.reshape(P, blocks, -1)], dim=-1) & held[..., None]
+    stream = byts[keep]
+    lengths = torch.where(held, vlen + _MINI + 4 * widths.sum(-1), 0)
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                         torch.cumsum(lengths.sum(-1), 0)])
+    n = min(stream.numel(), capacity)
+    out[:n] = stream[:n]
+    return out, offsets, over
 
 
-def delta_pages_multi(streams: torch.Tensor, stream_ids, starts, counts,
-                      bucket: int, bit_size: int, max_bits: int | None = None):
-    """The delta device phase of many pages of stacked value streams, one
-    launch for the whole (bucket, ring) group: page p is row
-    ``stream_ids[p]`` from ``starts[p]``, ``counts[p]`` values.
-    ``max_bits`` (default ``bit_size``) must bound every miniblock width of
-    every stream in the group (see :func:`delta_bits_bucket`).  Returns
-    :func:`delta_pages`' (mins, widths, packed)."""
-    table = page_table(stream_ids, starts, counts, streams.device)
-    return delta_pages(streams, table, bucket, bit_size, max_bits or bit_size)
+def stream_bytes(out: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """The defined part of :func:`delta_page_streams`' ``out``: its first
+    ``offsets[P]`` bytes, cut at its capacity."""
+    return out[:min(int(offsets[-1]), out.numel())]
 
 
-def delta_blocks_device(values: torch.Tensor, n, bit_size: int,
-                        max_bits: int | None = None):
-    """The delta device phase of one stream of ``n`` values: ``values`` is
-    1-D in the ring's type, ``1 + blocks * 128`` entries long (values past
-    ``n`` are ignored; a shorter tensor reads as zero-padded).  Returns
-    (mins (blocks,), widths (blocks, 4), packed (blocks, 4, 4*max_bits))."""
-    blocks = max(1, -(-(values.shape[0] - 1) // _BLOCK))
-    out = delta_pages_multi(values.reshape(1, -1), [0], [0], [int(n)],
-                            blocks * _BLOCK, bit_size, max_bits)
-    return tuple(o[0] for o in out)
+def check_budget(over, max_bits: int) -> None:
+    """Refuse streams whose width bound was wrong: ``over`` (host) is
+    :func:`delta_page_streams`' third output."""
+    w = int(np.asarray(over).reshape(-1)[0])
+    if w:
+        raise ValueError(
+            f"delta miniblock width {w} exceeds the device pack's budget "
+            f"max_bits={max_bits}: the packed stream is truncated")
 
 
-def assemble_delta_page(first_value: int, count: int, mins, widths, packed,
-                        bit_size: int, max_bits: int | None = None) -> bytes:
-    """Host assembly of one page's DELTA_BINARY_PACKED stream from the
-    device outputs (O(blocks)); byte-identical to the oracle.  ``mins`` are
-    the blocks' signed minimum deltas.
+def page_header(first_value: int, count: int) -> bytes:
+    """The DELTA_BINARY_PACKED page header: block size, miniblock count,
+    value count and the zigzag first value (0 for an empty page)."""
+    return (varint_bytes(_BLOCK) + varint_bytes(_MINI) + varint_bytes(count)
+            + varint_bytes(zigzag(int(first_value)) if count else 0))
 
-    ``max_bits`` is the width budget the device pack ran under: a miniblock
-    width above it means its packed slot was cut, so the page is refused
-    loudly instead of written short."""
-    out = bytearray()
-    out += varint_bytes(_BLOCK)
-    out += varint_bytes(_MINI)
-    out += varint_bytes(count)
-    if count == 0:
-        out += varint_bytes(0)
-        return bytes(out)
-    out += varint_bytes(zigzag(int(first_value)))
-    if count == 1:
-        return bytes(out)
-    blocks = (count - 1 + _BLOCK - 1) // _BLOCK
-    for b in range(blocks):
-        out += varint_bytes(zigzag(int(mins[b])))
-        ws = [int(w) for w in widths[b]]
-        out += bytes(ws)
-        for m, w in enumerate(ws):
-            if max_bits is not None and w > max_bits:
-                raise ValueError(
-                    f"delta miniblock width {w} exceeds the device pack's "
-                    f"budget max_bits={max_bits} (block {b}, miniblock {m}): "
-                    "the packed stream is truncated")
-            if w:
-                out += packed[b, m, : 4 * w].tobytes()
-    return bytes(out)
+
+def page_parts(first_value: int, count: int, out_host: np.ndarray, lo: int,
+               hi: int) -> list:
+    """One page as parts: its header and a view of its block stream,
+    ``out_host[lo:hi]`` (no copy)."""
+    return [page_header(first_value, count), out_host[lo:hi]]
 
 
 def delta_binary_packed_device(values: np.ndarray, bit_size: int = 64,
                                device="cuda") -> bytes:
-    """Full DELTA_BINARY_PACKED of ``values`` through the device phase and
-    the O(blocks) host assembly, one readback.  Byte-identical to
+    """Full DELTA_BINARY_PACKED of ``values`` through one device launch and
+    one readback.  Byte-identical to
     ``core.encodings.delta_binary_packed_encode``."""
     dev = resolve_device(device)
     itype = np.int64 if bit_size == 64 else np.int32
     v = np.ascontiguousarray(values, itype)
     n = len(v)
     if n <= 1:
-        return assemble_delta_page(int(v[0]) if n else 0, n,
-                                   None, None, None, bit_size)
-    # the host min/max bounds every miniblock width: the slots shrink to it
+        return page_header(int(v[0]) if n else 0, n)
+    # the host min/max bounds every miniblock width, and so the output
     max_bits = delta_bits_bucket(int(v.max()) - int(v.min()), bit_size)
-    out = delta_blocks_device(torch.from_numpy(v).to(dev), n, bit_size, max_bits)
-    mins, widths, packed = to_host(list(out))
-    return assemble_delta_page(int(v[0]), n, mins, widths, packed, bit_size,
-                               max_bits=max_bits)
+    out, offsets, over = delta_page_streams(
+        torch.from_numpy(v).reshape(1, -1).to(dev), np.array([[0, 0, n]]),
+        bit_size, max_bits)
+    out_h, off_h, over_h = to_host([out, offsets, over])
+    check_budget(over_h, max_bits)
+    return page_header(int(v[0]), n) + out_h[:int(off_h[-1])].tobytes()
 
 
 def delta_length_byte_array_device(values, device="cuda") -> bytes:

@@ -270,12 +270,30 @@ def _baseline_config1(rng):
             + [_leaf(f"s{k}", "string") for k in range(4)]), arrays, {}
 
 
+def _baseline_config3(rng):
+    """BASELINE config 3's shape at a small size (bench.py:1233-1249, its
+    encode-side properties :1297-1299): 4 near-sorted int64 timestamps and
+    4 columns of 32-char hex strings, the dictionary off and delta
+    fallback on, with 16 KiB pages so that every column splits into pages
+    of unequal counts."""
+    n = 4096
+    arrays = {f"ts{i}": (1_700_000_000_000 + np.cumsum(rng.integers(0, 50, n))
+                         + rng.integers(0, 5, n)).astype(np.int64) for i in range(4)}
+    arrays |= {f"u{i}": [f"{v:032x}".encode() for v in rng.integers(0, 1 << 62, n)]
+               for i in range(4)}
+    return ([_leaf(f"ts{i}", "int64") for i in range(4)]
+            + [_leaf(f"u{i}", "string") for i in range(4)]), arrays, {
+        "enable_dictionary": False, "delta_fallback": True,
+        "data_page_size": 16 * 1024}
+
+
 CASES = {f.__name__[1:]: f for f in (
     _low_cardinality, _gcd_strided, _floats, _multi_page, _long_runs,
     _width_zero, _high_cardinality, _nullable_and_strings,
     _nullable_differing_counts, _string_dictionary, _string_budget_rejection,
     _string_nullable, _optional_runny_levels, _optional_random_levels,
-    _delta_fallback, _int64_holding_int32, _bss_overrides, _baseline_config1)}
+    _delta_fallback, _int64_holding_int32, _bss_overrides, _baseline_config1,
+    _baseline_config3)}
 
 
 @pytest.mark.parametrize("codec", CODECS)

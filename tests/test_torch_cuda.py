@@ -134,30 +134,59 @@ def _delta_streams(rng, bit_size):
     return np.stack(rows)
 
 
+def _same_streams(got, want):
+    """Two ``delta_page_streams`` results agree: offsets, width flag, and
+    the bytes written (those below the capacity)."""
+    from kpw_tpu_torch.ops.delta import stream_bytes
+
+    assert torch.equal(got[1].cpu(), want[1].cpu())
+    assert torch.equal(got[2].cpu(), want[2].cpu())
+    assert torch.equal(stream_bytes(*got[:2]).cpu(), stream_bytes(*want[:2]).cpu())
+
+
 @pytest.mark.parametrize("bit_size", [32, 64])
 @pytest.mark.parametrize("max_bits", [8, 16, 24, 32, 48, 64])
 def test_delta_kernel_equals_plain(card, bit_size, max_bits):
-    """Both rings, every width bucket (widths above the budget are cut
-    the same way), counts 0/1/2/127/128/129 and ragged, starts past the
-    row's end."""
-    from kpw_tpu_torch.ops.delta import delta_pages, delta_pages_plain
+    """Both rings, every width bucket (widths above the budget flagged and
+    the streams cut at the capacity the same way), counts 0/1/2/127/128/
+    129 and ragged, starts past the row's end."""
+    from kpw_tpu_torch.ops.delta import delta_page_streams, delta_page_streams_plain
 
     if max_bits > bit_size:
         pytest.skip("the 32-bit ring has no budget above 32")
     rng = np.random.default_rng(bit_size + max_bits)
     streams = torch.from_numpy(_delta_streams(rng, bit_size)).to(card)
     rows, ld = streams.shape
-    table = torch.tensor(
+    table = np.array(
         [[r, s, c] for r in range(rows)
          for s, c in ((0, 1024), (1, 2), (3, 127), (5, 128), (7, 129), (11, 0),
-                      (13, 1), (700, 1000), (1490, 300), (ld, 5))],
-        dtype=torch.int32, device=card)
-    before = delta_pages.launches
-    got = delta_pages(streams, table, 1024, bit_size, max_bits)
-    assert delta_pages.launches == before + 1
-    want = delta_pages_plain(streams, table, 1024, bit_size, max_bits)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+                      (13, 1), (700, 1000), (1490, 300), (ld, 5))], np.int32)
+    before = delta_page_streams.launches
+    got = delta_page_streams(streams, table, bit_size, max_bits)
+    assert delta_page_streams.launches == before + 1
+    _same_streams(got, delta_page_streams_plain(streams, table, bit_size, max_bits))
+
+
+@pytest.mark.parametrize("bit_size", [32, 64])
+def test_delta_lookback_more_blocks_than_resident(card, bit_size):
+    """64 pages of 1,024 blocks (65,536 blocks, far more than the card
+    keeps resident) and pages of 1 to 1,024 blocks: the single-pass
+    look-back and the two-launch route both equal the plain version."""
+    from kpw_tpu_torch.ops.delta import (delta_page_streams, delta_page_streams_plain,
+                                         delta_page_streams_two_launch)
+
+    rng = np.random.default_rng(70 + bit_size)
+    itype = np.int64 if bit_size == 64 else np.int32
+    n = 1024 * 128 + 1
+    streams = torch.from_numpy(np.stack([
+        np.cumsum(rng.integers(-2, 60, n + 5_000)).astype(itype),
+        (rng.integers(0, 1 << 20, n + 5_000) - (1 << 19)).astype(itype)])).to(card)
+    for table in (np.array([[p % 2, (37 * p) % 5_000, n] for p in range(64)]),
+                  np.array([[p % 2, p, 1 + 128 * b] for p, b in
+                            enumerate((1, 2, 3, 7, 64, 100, 513, 1000, 1024))])):
+        want = delta_page_streams_plain(streams, table, bit_size, 24)
+        _same_streams(delta_page_streams(streams, table, bit_size, 24), want)
+        _same_streams(delta_page_streams_two_launch(streams, table, bit_size, 24), want)
 
 
 @pytest.mark.parametrize("C", [5, 64])
@@ -257,7 +286,8 @@ def test_writer_card_equals_cpu_encoder(card, pipeline):
         write(CpuChunkEncoder(props.encoder_options()))
 
 
-@pytest.mark.parametrize("path", ["writer", "levels", "nested", "encodings", "strings"])
+@pytest.mark.parametrize("path", ["writer", "levels", "nested", "encodings", "strings",
+                                  "cfg3"])
 def test_writer_paths_card_equal_cpu_encoder(card, path):
     """The smoke run's writer paths at a reduced depth: the card's files
     (row group by row group and through the pipeline) and the port's
@@ -270,18 +300,14 @@ def test_writer_paths_card_equal_cpu_encoder(card, path):
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import chip_smoke
     from kpw_tpu_torch.ops.bitpack import pack_pages
-    from kpw_tpu_torch.ops.delta import delta_pages
+    from kpw_tpu_torch.ops.delta import delta_page_streams
 
-    setup = {"writer": chip_smoke.writer_setup, "levels": chip_smoke.levels_setup,
-             "nested": chip_smoke.nested_setup,
-             "encodings": chip_smoke.encodings_setup,
-             "strings": chip_smoke.strings_setup}[path]
-    groups, schema, props = setup(small=True)
-    before = (pack_pages.launches, delta_pages.launches)
+    groups, schema, props = chip_smoke.SETUPS[path](small=True)
+    before = (pack_pages.launches, delta_page_streams.launches)
     calls, recorded = chip_smoke.writer_path(path, groups, schema, props)
     assert calls["level_blob_replays"] == 0
-    if path == "encodings":
-        assert delta_pages.launches > before[1]
+    if path in ("encodings", "cfg3"):  # one launch per ring, two card files
+        assert delta_page_streams.launches - before[1] == 2 * 2 * len(groups)
     else:
         assert pack_pages.launches > before[0]
     if path == "strings":

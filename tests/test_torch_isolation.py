@@ -167,7 +167,8 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         rank.rank_pages(pages, rt)
     with pytest.raises(ValueError, match="unsupported device"):
-        delta.delta_pages(pages.to(torch.int64), rt[0, :3, :3], 256, 64, 8)
+        delta.delta_page_streams(pages.to(torch.int64), np.zeros((1, 3), np.int32),
+                                 64, 8)
 
 
 def _wrapper_cases():
@@ -189,9 +190,9 @@ def _wrapper_cases():
     def counted_runs():
         return windows() + (True, None, True)  # stats, count, n_runs
 
-    def streams():
+    def streams():  # the page table stays on the host
         return (torch.empty((2, 300), dtype=torch.int64, device="cuda"),
-                torch.empty((3, 3), dtype=torch.int32, device="cuda"), 256, 64, 8)
+                np.array([[0, 0, 300], [1, 5, 200], [0, 7, 1]], np.int32), 64, 8)
 
     def ranked():
         return (torch.empty((2, 256), dtype=torch.int32, device="cuda"),
@@ -204,8 +205,8 @@ def _wrapper_cases():
         "pack": (bitpack, "pack_pages", "pack_pages", pack_plain, windows),
         "pack_n_runs": (bitpack, "pack_pages", "pack_pages", pack_plain,
                         counted_runs),
-        "delta": (delta, "delta_pages", "delta_pages", ("delta_pages_plain",),
-                  streams),
+        "delta": (delta, "delta_page_streams", "delta_page_streams",
+                  ("delta_page_streams_plain",), streams),
         "hist": (rank, "hist_pages", "hist_dict", hist_plain, values),
         "hist_dict": (rank, "hist_dict", "hist_dict", hist_plain, counted),
         "rank": (rank, "rank_pages", "rank_pages", ("rank_pages_plain",), ranked),
@@ -265,7 +266,7 @@ def test_device_paths_refuse_a_missing_card():
 
 
 _COUNTING = (bitpack.pack_pages, rank.hist_dict, rank.rank_pages,
-             delta.delta_pages)
+             delta.delta_page_streams)
 
 
 def test_cpu_tensors_launch_no_kernel(monkeypatch):

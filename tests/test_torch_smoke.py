@@ -17,9 +17,7 @@ import chip_smoke  # noqa: E402
 
 torch.set_num_threads(1)
 
-SETUPS = {"writer": chip_smoke.writer_setup, "levels": chip_smoke.levels_setup,
-          "nested": chip_smoke.nested_setup, "encodings": chip_smoke.encodings_setup,
-          "strings": chip_smoke.strings_setup}
+SETUPS = chip_smoke.SETUPS
 
 
 def test_native_phase():
@@ -35,6 +33,9 @@ def test_writer_path(path):
         assert calls["string_pack_jobs"] >= 2 * len(groups)
     if path in ("levels", "nested"):
         assert calls["level_runs_multi"] > 0 and calls["level_blob_replays"] == 0
+    if path in chip_smoke.DELTA_RINGS:  # one delta launch per ring a row group
+        assert calls["delta_page_streams"] == \
+            chip_smoke.DELTA_RINGS[path] * 2 * len(groups)
     errors = chip_smoke.check_path_inputs(torch, path, recorded)
     assert errors == {"bitpack": 0, "delta": 0}
     assert any(recorded[f] for f in chip_smoke.RECORDED)
