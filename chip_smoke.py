@@ -24,8 +24,8 @@ Phases, in order; any failed check exits non-zero before the result lines:
    byte for byte on both rings, wraparound edges, every width bucket, a
    violated width budget, ragged counts, pages of 1 to 1,024 blocks and a
    launch of 65,536 blocks, more than the card keeps resident, through the
-   look-back and the two-launch route, each page with its header also
-   against ``core.encodings``), then each timed with CUDA events (median
+   look-back, each page with its header also against ``core.encodings``),
+   then each timed with CUDA events (median
    of 25 runs, L2 flushed before each) beside its plain version, the
    PyTorch library call that computes the same function, and its memory
    bound — the pack, hist and rank at the flagship shape (the pack without
@@ -53,16 +53,18 @@ Phases, in order; any failed check exits non-zero before the result lines:
    make one delta launch per ring a row group; after each path its kernels
    are replayed on the inputs it gave them (every pack job, every level
    batch and page table through the pack with its run count, every delta
-   launch of either ring) against their plain versions, exactly;
+   launch of either ring) against their plain versions, exactly, and the
+   delta paths print the bytes their first row group's delta launches read
+   back;
 6. timing — the delta kernel at the shapes the ``encodings`` and ``cfg3``
-   paths gave it, beside its plain version and the two-launch route in
-   turns; each flagship route's step time and device profile (device ops
+   paths gave it, launched alone (CUDA events and the profiler's kernel
+   time) and with its staging, beside its plain version and the time of a
+   one-element PyTorch op on the same stream; each flagship route's step time and device profile (device ops
    per step), the dictionary build's two routes on one row group's
    columns, one row group's pack jobs through the fused kernel and the
    unfused route in turns, and one row group of each writer path: median
    stage spans of five runs and device profile (device ops, busy time,
-   copy time); on the two delta paths the planner's two readbacks in turns
-   with the bytes each reads back; the device string dictionary probe
+   copy time); the device string dictionary probe
    (``ops.strings``) on config 1's four string columns and on the
    encodings corpus's 13-byte ``uid`` column, each equal to
    ``core.encodings.dictionary_build``, its phases beside the native
@@ -77,11 +79,6 @@ statistics and run extraction, delta pages, the BYTE_STREAM_SPLIT
 transpose, the string planner's pack jobs).  The line before the last is
 one JSON object with a record per kernel (the delta kernel's at the
 ``encodings`` shape); the last line is ``{"ok": true, "device": {...}}``.
-
-``python3 chip_smoke.py --bodies ROOT`` instead runs one row group of the
-``encodings`` and ``cfg3`` paths through the ``kpw_tpu_torch`` under ROOT
-(another checkout, such as the parent commit's) and prints its median
-stage spans, to compare two trees in one call; it prints no result line.
 """
 
 from __future__ import annotations
@@ -134,13 +131,20 @@ class Timer:
         self.warmup = warmup
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
-    def ms(self, fn) -> float:
+    def ms(self, fn, setup=None) -> float:
+        """``setup``, when given, runs before each run of ``fn``, outside the
+        timed interval and before the flush, so that, as for a call with no
+        setup, the card is still flushing while the host launches ``fn``."""
         torch = self.torch
         for _ in range(self.warmup):
+            if setup is not None:
+                setup()
             fn()
         torch.cuda.synchronize()
         times = []
         for _ in range(self.reps):
+            if setup is not None:
+                setup()
             self.flush.zero_()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -470,26 +474,23 @@ def check_delta(torch, rng) -> int:
     end, at the row's own width bucket (one launch each), and the uniform
     row under an 8-bit budget (flagged, cut at the capacity alike); pages
     of 1 to 1,024 blocks; and 64 pages of 1,024 blocks in one launch, far
-    more blocks than the card keeps resident, through the look-back and
-    through the two-launch route.  Every page with its header also equals
+    more blocks than the card keeps resident, through the look-back.
+    Every page with its header also equals
     ``core.encodings.delta_binary_packed_encode``.  Returns the largest
     error (0)."""
     from kpw_tpu_torch.ops import delta
 
     worst, launches, buckets, pages_checked = 0, 0, set(), 0
 
-    def compare(streams_h, table, bit_size, max_bits, what, oracle=True, two=False):
+    def compare(streams_h, table, bit_size, max_bits, what, oracle=True):
         nonlocal worst, launches, pages_checked
         streams = torch.from_numpy(streams_h).to("cuda")
         want = delta.delta_page_streams_plain(streams, table, bit_size, max_bits)
-        routes = [delta.delta_page_streams] + (
-            [delta.delta_page_streams_two_launch] if two else [])
-        for route in routes:
-            got = route(streams, table, bit_size, max_bits)
-            launches += 1
-            e = same_streams(torch, got, want)
-            check(e == 0, f"delta ring {bit_size} {what} ({route.__name__}): max err {e}")
-            worst = max(worst, e)
+        got = delta.delta_page_streams(streams, table, bit_size, max_bits)
+        launches += 1
+        e = same_streams(torch, got, want)
+        check(e == 0, f"delta ring {bit_size} {what}: max err {e}")
+        worst = max(worst, e)
         if oracle and not int(got[2][0]):
             pages_checked += delta_pages_equal_oracle(streams_h, table, *got[:2],
                                                       bit_size, what)
@@ -513,18 +514,18 @@ def check_delta(torch, rng) -> int:
                          (rng.integers(0, 1 << 20, n + 5_000) - (1 << 19)).astype(itype)])
         ragged = np.array([[b % 2, 3 * b, 1 + 128 * b] for b in
                            (1, 2, 3, 7, 64, 100, 513, 1_000, 1_024)])
-        compare(long, ragged, bit_size, 24, "pages of 1..1,024 blocks", two=True)
+        compare(long, ragged, bit_size, 24, "pages of 1..1,024 blocks")
         resident = np.array([[p % 2, (37 * p) % 5_000, n] for p in range(64)])
         got = compare(long, resident, bit_size, 24, "64 pages x 1,024 blocks",
-                      oracle=False, two=True)
+                      oracle=False)
         pages_checked += delta_pages_equal_oracle(long, resident[:4], got[0], got[1],
                                                   bit_size, "64 x 1,024 (first 4)")
     torch.cuda.synchronize()
     say(f"[kernels] delta == plain on both rings ({launches} launches, width "
         f"buckets {sorted(buckets)}; wraparound edges, counts 0/1/2/127/128/129/"
         "ragged, starts past the row's end, an 8-bit budget violated; pages of "
-        "1..1,024 blocks; 64 pages x 1,024 blocks = 65,536 blocks in one launch, "
-        f"look-back and two-launch routes) and {pages_checked} pages with their "
+        "1..1,024 blocks; 64 pages x 1,024 blocks = 65,536 blocks in one launch "
+        f"through the look-back) and {pages_checked} pages with their "
         "headers == core.encodings.delta_binary_packed_encode")
     return worst
 
@@ -686,47 +687,80 @@ def delta_bytes(table, bit_size: int, offsets) -> int:
             + int(offsets[-1]) + (P + 1) * 8)
 
 
+def kernel_device_ms(torch, timer: Timer, stage, run, name: str):
+    """The profiler's device time of the kernel ``name``: the median over
+    ``timer.reps`` launches under the profiler, each staged (``stage``),
+    then the L2 flushed, then launched (``run``); None where the profiler
+    saw no such kernel."""
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(timer.reps):
+            stage()
+            timer.flush.zero_()
+            run()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and name in e.name]
+    return statistics.median(us) / 1e3 if us else None
+
+
 def delta_record(torch, timer: Timer, err: int, shapes: dict) -> dict:
     """The delta kernel timed at the shapes the main path hands it: one
     row group's 64-bit ring launch of the ``encodings`` path (ts, seq, rid)
     and of the ``cfg3`` path (ts0..ts3), each checked against its plain
-    version on the same inputs first.  The kernel's time is a staged
-    launch's (``ops.delta.DeltaLaunch.run``: the look-back state's memset
-    and the kernel), the call's time adds the wrapper's staging (the page
-    table's upload, the allocations); then the single-pass look-back
-    against the two-launch route (lengths, a PyTorch scan, the write), in
-    turns.  The record carries the encodings shape."""
+    version on the same inputs first.  CUDA events: the kernel launched
+    alone (``ops.delta.DeltaLaunch``: its one upload and the output's
+    allocation are made before the timed interval), the call with that
+    staging, and the plain version; beside them the profiler's device time
+    of the kernel (no launch overhead in it) and the event time of a
+    one-element PyTorch op, the least that CUDA events read for one
+    launch.  The record carries the encodings shape."""
     from kpw_tpu_torch.ops import delta
 
     rec = dict(name="delta", route="cuda", source="kpw_tpu_torch/csrc/delta.cu",
                replaces="kpw_tpu/ops/delta.py:119 (_delta_window, XLA code; "
                         "no pallas_call)",
                max_abs_err=err, library_ms=None)
+    one = torch.zeros(1, device="cuda")
+    floor_ms = timer.ms(lambda: one.add_(1))
     for label in ("cfg3", "encodings"):
         streams, table, bit_size, max_bits = shapes[label]
-        staged = delta.DeltaLaunch(streams, table, bit_size, max_bits)
-        got = staged.run()
+        staged = []
+
+        def stage():
+            staged[:] = [delta.DeltaLaunch(streams, table, bit_size, max_bits)]
+
+        def run():
+            return staged[0].run()
+
+        stage()
+        got = run()
         e = same_streams(torch, got, delta.delta_page_streams_plain(
             streams, table, bit_size, max_bits))
         check(e == 0, f"delta at the {label} shape: max err {e}")
         rec["max_abs_err"] = max(rec["max_abs_err"], e)
         nbytes = delta_bytes(table, bit_size, got[1].cpu().numpy())
         bound = nbytes / HBM_BYTES_PER_S * 1e3
-        ms = timer.ms(staged.run)
+        ms = timer.ms(run, setup=stage)
         call_ms = timer.ms(lambda: delta.delta_page_streams(streams, table, bit_size,
                                                             max_bits))
         plain_ms = timer.ms(lambda: delta.delta_page_streams_plain(
             streams, table, bit_size, max_bits))
-        one, two, t = abba(timer, staged.run, lambda: staged.run(two_launch=True))
+        dev_ms = kernel_device_ms(torch, timer, stage, run, "delta_streams_kernel")
+        dev = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
         tab = np.asarray(table).reshape(-1, 3)
         blocks = int(((np.maximum(tab[:, 2] - 1, 0) + 127) // 128).sum())
         say(f"[kernels] delta at the {label} shape ({tuple(streams.shape)} ring "
             f"{bit_size}, {len(tab)} pages, counts {tab[:, 2].tolist()}, {blocks} "
             f"blocks, max_bits {max_bits}, {int(got[1][-1])} body bytes): kernel "
-            f"{ms:.4f} ms (call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
-            f"{bound:.6f} ms ({nbytes} bytes), {ms / bound:.2f}x the bound; "
-            f"look-back {one:.4f} ms, two launches {two:.4f} ms; turns "
-            + ", ".join(f"{x:.4f}" for x in t))
+            f"{ms:.4f} ms alone (profiler device time {dev}), call with its staging "
+            f"{call_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.6f} ms "
+            f"({nbytes} bytes), {ms / bound:.2f}x the bound; a one-element "
+            f"PyTorch op {floor_ms:.4f} ms")
         if label == "encodings":
             rec.update(ms=ms, plain_ms=plain_ms, bytes=nbytes,
                        shape=f"{tuple(streams.shape)} int64 streams, {len(tab)} "
@@ -1353,8 +1387,16 @@ def check_path_inputs(torch, name: str, recorded) -> dict:
             err["bitpack"] = max(err["bitpack"], e)
             seen[label].append(f"{tuple(batch.shape)} P {len(ids)} bucket {bucket} "
                                f"width {width}")
+    # ring -> readback bytes of the first row group's launches: those
+    # before a ring repeats; sync 1 reads the offsets and the width flag,
+    # sync 2 the bytes written
+    first_group: dict = {}
+    in_first = True
     for (streams, table, bit_size, max_bits), _ in recorded["delta_page_streams"]:
         got = delta.delta_page_streams(streams, table, bit_size, max_bits)
+        in_first = in_first and bit_size not in first_group
+        if in_first:
+            first_group[bit_size] = int(got[1][-1]) + got[1].nbytes + got[2].nbytes
         want = delta.delta_page_streams_plain(streams, table, bit_size, max_bits)
         e = same_streams(torch, got, want)
         check(e == 0, f"{name}: delta on the path's {bit_size}-bit ring streams "
@@ -1364,6 +1406,10 @@ def check_path_inputs(torch, name: str, recorded) -> dict:
                              f"max_bits {max_bits}")
     if torch.cuda.is_available():
         torch.cuda.synchronize()
+    if first_group:
+        say(f"[{name}] delta readback of the first row group's "
+            f"{len(first_group)} launch(es): {sum(first_group.values())} bytes "
+            f"(offsets, width flag and the bytes written; by ring {first_group})")
     for label, groups in seen.items():
         if groups:
             distinct = sorted(set(groups))
@@ -1462,115 +1508,6 @@ def group_breakdown(torch, name: str, batch, schema, props) -> None:
         + device_profile(torch, one_group))
 
 
-def capacity_readback_planner():
-    """The delta planner with the other readback, kept here only to time
-    against the encoder's: nothing at sync 1, and sync 2 copies each
-    launch's whole output capacity with its offsets and flag."""
-    from kpw_tpu_torch.ops import backend
-    from kpw_tpu_torch.ops.delta import check_budget
-
-    class CapacityReadback(backend._DeltaPlanner):
-        def sync1_device(self):
-            return []
-
-        def after_sync1(self, host):
-            pass
-
-        def device_outputs(self):
-            return [t for *_, outs in self._launches for t in outs]
-
-        def assemble(self, fetched):
-            exact = []
-            for g, (_, _, max_bits, _) in enumerate(self._launches):
-                out_h, offsets, over = fetched[3 * g: 3 * g + 3]
-                check_budget(over, max_bits)
-                self._offsets.append(offsets)
-                exact.append(out_h)
-                self.readback_bytes += offsets.nbytes + over.nbytes
-            super().assemble(exact)
-
-    return CapacityReadback
-
-
-def delta_readback(name: str, batch, schema, props) -> None:
-    """The delta planner's readback against the capacity readback
-    (:func:`capacity_readback_planner`) on one row group, in turns (exact,
-    capacity, capacity, exact).  Each turn prints the median
-    ``encode.launch`` + ``encode.bodies`` of five runs and the bytes the
-    planner read back, beside what the parent's planner outputs (mins,
-    widths and packed slots of every bucket block) came to for the same
-    pages, computed from their shapes."""
-    from kpw_tpu_torch.ops import backend
-    from kpw_tpu_torch.ops.delta import delta_bits_bucket
-    from kpw_tpu_torch.ops.packing import pad_bucket
-
-    planners = []
-    saved = backend._DeltaPlanner
-    kinds = {True: saved, False: capacity_readback_planner()}
-
-    def recording(base):
-        class Recording(base):
-            def __init__(self, *args, **kwargs):
-                super().__init__(*args, **kwargs)
-                planners.append(self)
-        return Recording
-
-    turns = []
-    try:
-        for exact in (True, False, False, True):
-            backend._DeltaPlanner = recording(kinds[exact])
-            st = one_group_stages(batch, schema, props)
-            turns.append((exact, st.get("encode.launch", 0) + st.get("encode.bodies", 0),
-                          st.get("encode.bodies", 0), planners[-1].readback_bytes))
-    finally:
-        backend._DeltaPlanner = saved
-    planner = planners[-1]
-    old = 0  # the parent's (bucket, ring) groups: P x blocks x (8 + 16 + 16 max_bits)
-    groups: dict = {}
-    for ring, items, _, _ in planner._launches:
-        rows = planner._streams[ring]
-        for row, _, va, vb in items:
-            s_ = rows[row]
-            bits = delta_bits_bucket(int(s_.max()) - int(s_.min()), ring)
-            key = (pad_bucket(vb - va), ring)
-            n, mb = groups.get(key, (0, 0))
-            groups[key] = (n + 1, max(mb, bits))
-    for (bucket, _), (n, mb) in groups.items():
-        old += n * (bucket // 128) * (8 + 16 + 16 * mb)
-    say(f"[{name}] delta readback, one row group ({len(planner._launches)} launches, "
-        f"{sum(len(t[1]) for t in planner._launches)} pages): "
-        + "; ".join(f"{'exact' if e else 'capacity'}: launch+bodies {t:.3f} ms "
-                    f"(bodies {bd:.3f}), {nb} bytes read back" for e, t, bd, nb in turns)
-        + f"; the parent planner's outputs for these pages: {old} bytes in "
-          f"{len(groups)} (bucket, ring) launches (computed)")
-
-
-def parent_bodies(root: str) -> None:
-    """``python3 chip_smoke.py --bodies ROOT``: one row group of the
-    ``encodings`` and ``cfg3`` paths through the ``kpw_tpu_torch`` package
-    found under ROOT (another checkout, such as the parent commit's), its
-    median stage spans of five runs; for comparing ``encode.bodies``
-    between two trees on one card in one call.  Prints no result line."""
-    import torch
-
-    check(torch.cuda.is_available(), "CUDA is not available")
-    sys.path.insert(0, os.path.abspath(root))
-    import kpw_tpu_torch
-
-    check(os.path.dirname(os.path.abspath(kpw_tpu_torch.__file__))
-          == os.path.join(os.path.abspath(root), "kpw_tpu_torch"),
-          f"kpw_tpu_torch loaded from {kpw_tpu_torch.__file__}, not {root}")
-    phase_card(torch)
-    from kpw_tpu_torch.ops.backend import CudaChunkEncoder
-
-    for name in ("encodings", "cfg3"):
-        groups, schema, props = SETUPS[name]()
-        write_batches(CudaChunkEncoder(props.encoder_options()),
-                      *SETUPS[name](small=True))
-        say(f"[bodies {root}] {name}: one row group, median stage ms of 5 runs "
-            f"{one_group_stages(groups[0], schema, props)}")
-
-
 # ---------------------------------------------------------------------------
 
 def main() -> None:
@@ -1656,8 +1593,6 @@ def main() -> None:
     taxi_pack_jobs(torch, timer, schema, props, taxi[0])
     for name, (groups, schema, props) in inputs.items():
         group_breakdown(torch, name, groups[0], schema, props)
-        if name in DELTA_RINGS:
-            delta_readback(name, groups[0], schema, props)
     string_probe(torch, inputs)
 
     out = []
@@ -1675,7 +1610,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--bodies"] and len(sys.argv) == 3:
-        parent_bodies(sys.argv[2])
-    else:
-        main()
+    main()

@@ -55,12 +55,9 @@
 // dependent reads.)
 // Each state word holds the flag and the value together, so one 64-bit
 // exchange publishes both.  The offsets are byte-granular, so the block's
-// threads copy its staged bytes out with byte stores.
-//
-// The same kernel also runs as the two halves of a two-launch route, kept
-// to time against the look-back: lengths only (the block's L to a lengths
-// array), then, after an exclusive scan of them between the launches, the
-// write with each block's offset read from that scan.
+// threads copy its staged bytes out with byte stores.  The state arrives
+// zeroed with the page table in the host's one upload, so a launch needs no
+// memset before it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -86,7 +83,6 @@ __device__ int page_of(const int* __restrict__ bstart, int P, int g) {
   return lo;
 }
 
-// mode 0: fused look-back; 1: lengths only; 2: write at prefix[g]
 template <typename T>
 __global__ void __launch_bounds__(kBlock)
 delta_streams_kernel(const T* __restrict__ streams, int rows, long long ld,
@@ -94,8 +90,7 @@ delta_streams_kernel(const T* __restrict__ streams, int rows, long long ld,
                      const int* __restrict__ bstart, int P, int nblocks,
                      int max_bits, unsigned long long capacity,
                      uint8_t* __restrict__ out, long long* __restrict__ offsets,
-                     unsigned long long* state, int mode,
-                     long long* __restrict__ scan) {
+                     unsigned long long* state) {
   using U = typename std::make_unsigned<T>::type;
   constexpr int kBits = 8 * sizeof(T);
   constexpr T kMax = (T)(~(U)0 >> 1);
@@ -107,11 +102,9 @@ delta_streams_kernel(const T* __restrict__ streams, int rows, long long ld,
   __shared__ unsigned long long s_excl;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (mode == 0) {
-    if (tid == 0) s_g = (int)atomicAdd(&state[nblocks], 1ull);
-    __syncthreads();
-  }
-  const int g = mode == 0 ? s_g : (int)blockIdx.x;
+  if (tid == 0) s_g = (int)atomicAdd(&state[nblocks], 1ull);
+  __syncthreads();
+  const int g = s_g;
   const int p = page_of(bstart, P, g);
   const int b = g - bstart[p];
   const int row = table[3 * p], start = table[3 * p + 1];
@@ -185,10 +178,6 @@ delta_streams_kernel(const T* __restrict__ streams, int rows, long long ld,
     if (k < warp) mb_off += 4 * warp_w[k];
     L += 4 * warp_w[k];
   }
-  if (mode == 1) {  // lengths only
-    if (tid == 0) scan[g] = L;
-    return;
-  }
   if (tid < vlen) {
     const uint8_t low = (uint8_t)((z >> (7 * tid)) & 0x7F);
     stage[tid] = tid + 1 < vlen ? (uint8_t)(low | 0x80) : low;
@@ -208,9 +197,7 @@ delta_streams_kernel(const T* __restrict__ streams, int rows, long long ld,
   // the block's byte offset: warp 0 looks back over 32 blocks at a time
   if (warp == 0) {
     unsigned long long excl = 0;
-    if (mode == 2) {
-      excl = (unsigned long long)scan[g];
-    } else if (g == 0) {
+    if (g == 0) {
       if (lane == 0) atomicExch(&state[0], kPrefix | (unsigned long long)L);
     } else {
       if (lane == 0) atomicExch(&state[g], kAggregate | (unsigned long long)L);
@@ -256,11 +243,10 @@ delta_streams_kernel(const T* __restrict__ streams, int rows, long long ld,
 template <typename T>
 void launch(const void* streams, int rows, long long ld, const int* meta, int P,
             int nblocks, int max_bits, unsigned long long capacity, void* out,
-            void* offsets, void* state, int mode, void* scan, cudaStream_t s) {
+            void* offsets, void* state, cudaStream_t s) {
   delta_streams_kernel<T><<<(unsigned)nblocks, kBlock, 0, s>>>(
       (const T*)streams, rows, ld, meta, meta + 3 * P, P, nblocks, max_bits,
-      capacity, (uint8_t*)out, (long long*)offsets, (unsigned long long*)state,
-      mode, (long long*)scan);
+      capacity, (uint8_t*)out, (long long*)offsets, (unsigned long long*)state);
 }
 
 }  // namespace
@@ -270,30 +256,27 @@ void launch(const void* streams, int rows, long long ld, const int* meta, int P,
 // bstart (nblocks = bstart[P] > 0); max_bits: 1..64 (1..32 for the 32-bit
 // ring), the width bound capacity was sized from; out: capacity bytes;
 // offsets: P + 1 int64; state: nblocks + 2 uint64, zero (look-back states,
-// the ticket, the widest width over max_bits).  mode 0 runs the fused
-// look-back; mode 1 writes each block's byte length to scan (nblocks int64)
-// and nothing else; mode 2 writes the bytes at the offsets scan holds (the
-// exclusive scan of mode 1's lengths).  Launches on `stream` of `device`;
-// returns the first cudaError_t of the launch.
+// the ticket, the widest width over max_bits), so a launch runs once on a
+// state.  Launches on `stream` of `device`; returns the first cudaError_t of
+// the launch.
 extern "C" int kpw_delta_streams(const void* streams, int rows, long long ld,
                                  int ring64, const void* meta, int P, int nblocks,
                                  int max_bits, unsigned long long capacity,
-                                 void* out, void* offsets, void* state, int mode,
-                                 void* scan, int device, void* stream) {
+                                 void* out, void* offsets, void* state, int device,
+                                 void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int ring_bits = ring64 ? 64 : 32;
-  if (P <= 0 || nblocks <= 0 || ld < 0 || max_bits < 1 || max_bits > ring_bits ||
-      mode < 0 || mode > 2 || (mode != 0 && scan == nullptr))
+  if (P <= 0 || nblocks <= 0 || ld < 0 || max_bits < 1 || max_bits > ring_bits)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int* m = (const int*)meta;
   if (ring64) {
     launch<long long>(streams, rows, ld, m, P, nblocks, max_bits, capacity, out,
-                      offsets, state, mode, scan, s);
+                      offsets, state, s);
   } else {
     launch<int>(streams, rows, ld, m, P, nblocks, max_bits, capacity, out,
-                offsets, state, mode, scan, s);
+                offsets, state, s);
   }
   return (int)cudaGetLastError();
 }

@@ -415,9 +415,8 @@ class _DeltaPlanner:
 
     Readback: each launch's page offsets and width flag join sync 1, so
     that sync 2 copies exactly the bytes written (as fast as copying the
-    whole output capacity at sync 2 in the chip smoke run's turns, with a
-    fifth of the bytes).  ``readback_bytes`` counts what the planner's
-    outputs took off the card."""
+    whole output capacity at sync 2, measured on the H100, with a fifth of
+    the bytes)."""
 
     def __init__(self, encoder: "CudaChunkEncoder", chunks) -> None:
         # id(chunk) -> (chunk, {(va, vb): page parts})
@@ -426,7 +425,6 @@ class _DeltaPlanner:
         self._launches = []  # (ring, items, max_bits, (out, offsets, over))
         self._fetch: list = []  # sync 2's tensors: the bytes written
         self._offsets: list = []  # host offsets per launch
-        self.readback_bytes = 0
         self.empty = True
         opts = encoder.options
         if not (opts.delta_fallback or opts.adaptive_encodings or opts.encodings):
@@ -507,7 +505,6 @@ class _DeltaPlanner:
             check_budget(over, max_bits)
             self._offsets.append(offsets)
             self._fetch.append(out[:int(offsets[-1])])
-            self.readback_bytes += offsets.nbytes + over.nbytes
 
     def device_outputs(self) -> list:
         return self._fetch
@@ -517,7 +514,6 @@ class _DeltaPlanner:
         (and the payload view of a DELTA_LENGTH_BYTE_ARRAY page)."""
         for g, (ring, items, _, _) in enumerate(self._launches):
             out_h = fetched[g]
-            self.readback_bytes += out_h.nbytes
             offs = self._offsets[g].tolist()
             rows = self._streams[ring]
             for p, (row, chunk, va, vb) in enumerate(items):

@@ -48,8 +48,7 @@ def _kernel():
             ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_ulonglong, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p])
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     return _fn
 
 
@@ -103,7 +102,10 @@ def _plan(streams: torch.Tensor, table, bit_size: int, max_bits: int):
             raise ValueError("the page table must be on the host: its counts "
                              "size the launch")
         table = table.numpy()
-    tab = np.asarray(table, np.int64).reshape(-1, 3)
+    tab = np.asarray(table, np.int64)
+    if tab.ndim != 2 or tab.shape[1] != 3:
+        raise ValueError(f"the page table must be (P, 3) (row, start, count), "
+                         f"got shape {tab.shape}")
     if tab.size and (tab.min() < 0 or tab.max() > np.iinfo(np.int32).max):
         raise ValueError("the page table's rows, starts and counts must be "
                          "int32 and >= 0")
@@ -145,11 +147,13 @@ delta_page_streams.launches = 0
 
 
 class DeltaLaunch:
-    """One launch of ``csrc/delta.cu`` staged on the card: the page table
-    and block prefix uploaded, the outputs and the look-back state
-    allocated.  :meth:`run` clears the state and launches, so a staged
-    launch can be timed alone; :func:`delta_page_streams` is one staging
-    and one run."""
+    """One launch of ``csrc/delta.cu`` staged on the card: a single upload
+    holds the offsets, the zeroed look-back state (its ticket and width
+    flag last) and the page table with its block prefix, so the launch
+    needs no memset; the output is allocated.  :meth:`run` launches once
+    (the look-back state is spent by it), so a launch can be timed apart
+    from its staging; :func:`delta_page_streams` is one staging and one
+    run."""
 
     def __init__(self, streams: torch.Tensor, table, bit_size: int,
                  max_bits: int) -> None:
@@ -157,59 +161,39 @@ class DeltaLaunch:
         self._kernel = _kernel()
         if not streams.is_contiguous():
             raise ValueError("streams must be contiguous")
-        dev = streams.device
         self.streams, self.bit_size, self.max_bits = streams, bit_size, max_bits
         self.P, self.nblocks, self.capacity = tab.shape[0], int(bstart[-1]), capacity
-        self.out = torch.empty(capacity, dtype=torch.uint8, device=dev)
-        # offsets, then the look-back states, the ticket and the width flag
-        self._meta = None
-        self._state = torch.empty(self.P + 1 + self.nblocks + 2, dtype=torch.int64,
-                                  device=dev)
-        if self.nblocks:  # one upload: the page table, then the block prefix
-            self._meta = torch.from_numpy(np.concatenate([tab.reshape(-1), bstart])
-                                          .astype(np.int32)).to(dev)
+        meta = np.concatenate([tab.reshape(-1), bstart]).astype(np.int32)
+        head = self.P + 1 + self.nblocks + 2  # offsets, states, ticket, flag
+        host = np.zeros(head + (meta.size + 1) // 2, np.int64)
+        host[head:].view(np.int32)[:meta.size] = meta
+        # CUDA copies a pageable source out before the call returns
+        self._buf = torch.from_numpy(host).to(streams.device, non_blocking=True)
+        self.out = torch.empty(capacity, dtype=torch.uint8, device=streams.device)
+        self._spent = False
 
-    def run(self, two_launch: bool = False):
+    def run(self):
         """Launch; returns ``(out, offsets, over)`` as
-        :func:`delta_page_streams` does.  ``two_launch`` runs the kernel's
-        two-launch route instead (block lengths, a PyTorch exclusive scan,
-        the write), kept only to time against the single-pass look-back."""
-        P, nblocks = self.P, self.nblocks
-        offsets, over = self._state[:P + 1], self._state[-1:]
+        :func:`delta_page_streams` does."""
+        if self._spent:
+            raise RuntimeError("a staged delta launch runs once: its look-back "
+                               "state is spent")
+        self._spent = True
+        P, nblocks, buf = self.P, self.nblocks, self._buf
+        offsets, state = buf[:P + 1], buf[P + 1:P + 1 + nblocks + 2]
+        over = state[-1:]
         if nblocks == 0:  # nothing to launch: every page has at most one value
-            self._state.zero_()
             return self.out, offsets, over
-        state = self._state[P + 1:]
-        state.zero_()
         device, stream = cuda_launch_args(self.streams)
         rows, ld = self.streams.shape
-        args = (self.streams.data_ptr(), rows, ld, int(self.bit_size == 64),
-                self._meta.data_ptr(), P, nblocks, self.max_bits, self.capacity,
-                self.out.data_ptr(), offsets.data_ptr(), state.data_ptr())
-        if two_launch:
-            lengths = torch.empty(nblocks, dtype=torch.int64, device=self.out.device)
-            rc = self._kernel(*args, 1, lengths.data_ptr(), device, stream)
-            if not rc:
-                scan = torch.cumsum(lengths, 0) - lengths
-                rc = self._kernel(*args, 2, scan.data_ptr(), device, stream)
-        else:
-            rc = self._kernel(*args, 0, None, device, stream)
+        rc = self._kernel(self.streams.data_ptr(), rows, ld, int(self.bit_size == 64),
+                          buf[P + 1 + nblocks + 2:].data_ptr(), P, nblocks,
+                          self.max_bits, self.capacity, self.out.data_ptr(),
+                          offsets.data_ptr(), state.data_ptr(), device, stream)
         if rc:
             raise RuntimeError(f"kpw_delta_streams launch failed: CUDA error {rc}")
         delta_page_streams.launches += 1
         return self.out, offsets, over
-
-
-def delta_page_streams_two_launch(streams: torch.Tensor, table, bit_size: int,
-                                  max_bits: int):
-    """:func:`delta_page_streams` on the card as two launches of the same
-    kernel with a PyTorch exclusive scan between them (block lengths, then
-    the write at the scanned offsets) instead of the single-pass look-back.
-    The encoder does not call it; it is kept to time the two routes
-    against each other.  CUDA tensors only."""
-    if streams.device.type != "cuda":
-        raise ValueError(f"unsupported device {streams.device}")
-    return DeltaLaunch(streams, table, bit_size, max_bits).run(two_launch=True)
 
 
 def _block_deltas(streams: torch.Tensor, tab: np.ndarray, bucket: int,

@@ -171,9 +171,9 @@ def test_delta_kernel_equals_plain(card, bit_size, max_bits):
 def test_delta_lookback_more_blocks_than_resident(card, bit_size):
     """64 pages of 1,024 blocks (65,536 blocks, far more than the card
     keeps resident) and pages of 1 to 1,024 blocks: the single-pass
-    look-back and the two-launch route both equal the plain version."""
-    from kpw_tpu_torch.ops.delta import (delta_page_streams, delta_page_streams_plain,
-                                         delta_page_streams_two_launch)
+    look-back equals the plain version, and a staged launch runs once."""
+    from kpw_tpu_torch.ops.delta import (DeltaLaunch, delta_page_streams,
+                                         delta_page_streams_plain)
 
     rng = np.random.default_rng(70 + bit_size)
     itype = np.int64 if bit_size == 64 else np.int32
@@ -186,7 +186,10 @@ def test_delta_lookback_more_blocks_than_resident(card, bit_size):
                             enumerate((1, 2, 3, 7, 64, 100, 513, 1000, 1024))])):
         want = delta_page_streams_plain(streams, table, bit_size, 24)
         _same_streams(delta_page_streams(streams, table, bit_size, 24), want)
-        _same_streams(delta_page_streams_two_launch(streams, table, bit_size, 24), want)
+        staged = DeltaLaunch(streams, table, bit_size, 24)
+        _same_streams(staged.run(), want)
+        with pytest.raises(RuntimeError, match="runs once"):
+            staged.run()
 
 
 @pytest.mark.parametrize("C", [5, 64])

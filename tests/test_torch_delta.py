@@ -226,6 +226,10 @@ def test_wrapper_refuses_bad_inputs():
         TD.delta_page_streams(s.to(torch.int32), table, 32, 48)
     with pytest.raises(ValueError, match="int32 and >= 0"):
         TD.delta_page_streams(s, np.array([[0, -1, 5]]), 64, 8)
+    for bad in (np.zeros((1, 6), np.int32), np.zeros(3, np.int32),
+                np.zeros((2, 3, 1), np.int32)):
+        with pytest.raises(ValueError, match=r"must be \(P, 3\)"):
+            TD.delta_page_streams(s, bad, 64, 8)
     with pytest.raises(ValueError, match="on the host"):
         TD.delta_page_streams(s, torch.zeros((1, 3), dtype=torch.int32,
                                              device="meta"), 64, 8)
