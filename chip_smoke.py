@@ -41,7 +41,8 @@ Phases, in order; any failed check exits non-zero before the result lines:
    writes: ``writer``, a taxi-shaped 64-column table, 1,048,576 rows in
    four row groups; ``levels``, the same table with optional columns
    (rep/def level pages); ``nested``, BASELINE config 5's 32,768 orders
-   shredded with numpy (rep levels); ``encodings``, the adaptive-encodings
+   serialized and shredded from the wire by the port's
+   ``ProtoColumnarizer`` (rep levels); ``encodings``, the adaptive-encodings
    corpus, 400,000 rows, with delta and BYTE_STREAM_SPLIT overrides;
    ``strings``, BASELINE config 1 (8 int64 and 4 string columns, SNAPPY),
    1,048,576 rows in four row groups, whose string dictionaries are built
@@ -55,8 +56,25 @@ Phases, in order; any failed check exits non-zero before the result lines:
    batch and page table through the pack with its run count, every delta
    launch of either ring) against their plain versions, exactly, and the
    delta paths print the bytes their first row group's delta launches read
-   back;
-6. timing — the delta kernel at the shapes the ``encodings`` and ``cfg3``
+   back; beside each path, what ``"auto"`` (``runtime/select.py``) picks
+   and which of the card and the host C++ wrote it faster;
+6. stream — the streaming writer through its public API, ``Builder`` →
+   ``start()`` → poll → wire shred → append → row groups encoded → size and
+   time rotation → durable publish on a local filesystem → offset ack →
+   ``close()``, on BASELINE config 1's records in the shape of the JAX
+   package's e2e probe: 400,000 records, serialized by this script (its
+   descriptor stand-ins need no protobuf), on a 4-partition ``FakeBroker``
+   topic.  Arms ``"cuda"`` with 1 and 4 worker threads, ``"native"`` with
+   1 and 4, and ``"auto"`` with 1: each must drain to every offset
+   committed with ack-lag 0, every published file must pass the port's
+   ``verify_file`` and the footers' rows sum to 400,000, and a card arm
+   must launch the pack kernel; each prints records/s to all written,
+   rows per row group and files; one card arm prints its stage spans and,
+   run again under the profiler, the card's busy share.  Then the
+   deterministic arm (one partition, one thread, autotune, time rotation
+   and the row-group pipeline off): its ``"cuda"``, ``"native"`` and
+   ``"cpu"`` files byte-identical, file for file;
+7. timing — the delta kernel at the shapes the ``encodings`` and ``cfg3``
    paths gave it, launched alone (CUDA events and the profiler's kernel
    time) and with its staging, beside its plain version and the time of a
    one-element PyTorch op on the same stream; each flagship route's step time and device profile (device ops
@@ -70,9 +88,10 @@ Phases, in order; any failed check exits non-zero before the result lines:
    ``core.encodings.dictionary_build``, its phases beside the native
    hash's time.
 
-Phases 4 and 5 are the main paths: every launch count is set to 0 just
-before each of them and read just after, and a kernel of the path that
-never launched fails the run; the ``launches`` reported are their sum.
+Phases 4, 5 and 6 are the main paths: every launch count is set to 0 just
+before each of them (each arm of phase 6) and read just after, and a kernel
+of the path that never launched fails the run; the ``launches`` reported
+are their sum.
 The taxi writer must make exactly one pack launch a job and no padded
 index copy; each other writer path must call its device routes (level
 statistics and run extraction, delta pages, the BYTE_STREAM_SPLIT
@@ -101,6 +120,7 @@ NESTED_ROWS, NESTED_GROUPS = 32_768, 4  # BASELINE config 5: bench.py:1588
 ENC_ROWS, ENC_BATCHES = 400_000, 8  # the encodings corpus: bench.py:4928
 CFG1_ROWS, CFG1_GROUPS = 262_144, 4  # BASELINE config 1: bench.py:131, 300-323
 CFG3_ROWS, CFG3_GROUPS = 131_072, 4  # BASELINE config 3: bench.py:1233-1249
+STREAM_RECORDS, STREAM_SMALL = 400_000, 20_000  # the e2e probe: bench.py:3908
 
 
 def fail(msg: str) -> None:
@@ -197,9 +217,10 @@ def phase_build() -> None:
 
 
 def start_native_build():
-    """Build the port's native host library and page assembler (g++) on a
-    thread, so that they compile while ``nvcc`` builds the kernels; returns
-    the thread and the seconds each build took, filled in when it ends."""
+    """Build the port's native host library, page assembler and wire shred
+    extension (g++) on a thread, so that they compile while ``nvcc`` builds
+    the kernels; returns the thread and the seconds each build took, filled
+    in when it ends."""
     import threading
 
     seconds: dict = {}
@@ -213,6 +234,9 @@ def start_native_build():
         t0 = time.perf_counter()
         native.assemble()
         seconds["assembler"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        native.pyshred()
+        seconds["shred extension"] = time.perf_counter() - t0
 
     thread = threading.Thread(target=run, name="native-build")
     thread.start()
@@ -234,19 +258,23 @@ def phase_native(thread, seconds: dict) -> None:
     from kpw_tpu_torch.native import build
 
     thread.join()
-    L, asm = native.lib(), native.assemble()
-    check(L is not None and asm is not None,
-          f"the port's native library or assembler did not build: {native.errors}")
-    check(L._c._name == build.LIB_SO and asm.__file__ == build.ASSEMBLE_SO,
-          f"native artifacts loaded from {L._c._name}, {asm.__file__}")
+    L, asm, pys = native.lib(), native.assemble(), native.pyshred()
+    check(L is not None and asm is not None and pys is not None,
+          f"the port's native library, assembler or shred extension did not "
+          f"build: {native.errors}")
+    check(L._c._name == build.LIB_SO and asm.__file__ == build.ASSEMBLE_SO
+          and pys.__file__ == build.PYSHRED_SO and pys.__name__ == build.PYSHRED_NAME,
+          f"native artifacts loaded from {L._c._name}, {asm.__file__}, "
+          f"{pys.__file__} ({pys.__name__})")
     check(asm.OP_KINDS == 5, f"assembler OP_KINDS {asm.OP_KINDS}, not 5")
     try:
         ctypes.CDLL("libsnappy.so.1")
         snappy = "found (the library dispatches SNAPPY to it)"
     except OSError:
         snappy = "not found (the library's own Snappy compressor serves)"
-    say(f"[native] built in {seconds['library']:.2f} s (library) + "
-        f"{seconds['assembler']:.2f} s (assembler), beside nvcc; has_zstd "
+    say(f"[native] built in "
+        + " + ".join(f"{v:.2f} s ({k})" for k, v in seconds.items())
+        + ", beside nvcc; has_zstd "
         f"{L.has_zstd}, assembler HAS_ZSTD {asm.HAS_ZSTD}, OP_KINDS "
         f"{asm.OP_KINDS}; libsnappy.so.1 {snappy}")
     rng = np.random.default_rng(2)
@@ -1026,51 +1054,153 @@ def levels_setup(small: bool = False):
     return groups, schema, WriterProperties()
 
 
-def order_schema():
-    """``proto_to_schema(Order)`` of the repo's nested test message
-    (tests/proto_helpers.py:63-78), written out in the port's schema types:
-    order_id int64; items repeated {sku string, qty optional int32, tags
-    repeated string}; note optional string."""
-    from kpw_tpu_torch.core import ConvertedType, Field, PhysicalType, Repetition, Schema
+# ---------------------------------------------------------------------------
+# protobuf records without protobuf: descriptor stand-ins and a wire encoder
+# ---------------------------------------------------------------------------
 
-    def string(name, rep, fid):
-        return Field(name, rep, PhysicalType.BYTE_ARRAY, ConvertedType.UTF8,
-                     field_id=fid)
+class WireField:
+    """A protobuf field descriptor stand-in with the attributes the port's
+    proto bridge reads (``descriptor.proto``'s type and label numbers)."""
 
-    items = Field("items", Repetition.REPEATED, field_id=2, children=[
-        string("sku", Repetition.REQUIRED, 1),
-        Field("qty", Repetition.OPTIONAL, PhysicalType.INT32, field_id=2),
-        string("tags", Repetition.REPEATED, 3)])
-    return Schema([Field("order_id", Repetition.REQUIRED, PhysicalType.INT64,
-                         field_id=1), items,
-                   string("note", Repetition.OPTIONAL, 3)], name="Order")
+    def __init__(self, name: str, number: int, ftype: int, label: int,
+                 message_type=None) -> None:
+        self.name, self.number, self.type, self.label = name, number, ftype, label
+        self.message_type = message_type
+        self.enum_type = None
 
 
-def shred_orders(schema, order_id, n_items, sku, qty):
-    """Shred Order rows into the port's columns with numpy, from each
-    order's item count: every item has a sku and a qty and no tags, no
-    order has a note.  An order without items is one slot at level 0;
-    an order's first item starts its record (rep 0), the others repeat
-    the list (rep 1)."""
-    from kpw_tpu_torch.core import ColumnBatch
-    from kpw_tpu_torch.core.bytecol import ByteColumn
-    from kpw_tpu_torch.core.pages import ColumnChunkData
+class WireFile:
+    syntax = "proto2"
 
-    n = len(order_id)
-    slots = np.maximum(n_items, 1)
-    total = int(slots.sum())
-    has = np.repeat(n_items > 0, slots)
-    rep = np.ones(total, np.int32)
-    rep[np.concatenate([[0], np.cumsum(slots)[:-1]])] = 0
-    order_id_c, sku_c, qty_c, tags_c, note_c = schema.columns
-    empty = ByteColumn(b"", np.zeros(1, np.int64))
-    return ColumnBatch([
-        ColumnChunkData(order_id_c, order_id, None, None, n),
-        ColumnChunkData(sku_c, ByteColumn.from_list(sku), has.astype(np.int32),
-                        rep, n),
-        ColumnChunkData(qty_c, qty, 2 * has.astype(np.int32), rep, n),
-        ColumnChunkData(tags_c, empty, has.astype(np.int32), rep, n),
-        ColumnChunkData(note_c, empty, np.zeros(n, np.int32), None, n)], n)
+
+class WireDescriptor:
+    """A message descriptor stand-in: its name, fields and file."""
+
+    def __init__(self, name: str, fields: list) -> None:
+        self.name, self.fields, self.file = name, fields, WireFile()
+
+
+def wire_message(name: str, fields: list):
+    """A message class stand-in for the writer: its ``DESCRIPTOR``, and a
+    ``FromString`` that refuses to parse, since the wire path shreds the
+    serialized records and never builds a message."""
+
+    class Message:
+        DESCRIPTOR = WireDescriptor(name, fields)
+
+        @classmethod
+        def FromString(cls, data):
+            raise NotImplementedError(
+                f"{name} is a descriptor stand-in: records take the wire path")
+
+    Message.__name__ = Message.__qualname__ = name
+    return Message
+
+
+def replay_class():
+    """BASELINE config 1's streaming record (bench.py:3775-3779): required
+    int64 ``i0..i7`` (fields 1-8) and required strings ``s0..s3`` (9-12)."""
+    from kpw_tpu_torch.models.proto_bridge import FD
+
+    return wire_message("Replay", [
+        WireField(f"i{k}", k + 1, FD.TYPE_INT64, FD.LABEL_REQUIRED) for k in range(8)]
+        + [WireField(f"s{k}", k + 9, FD.TYPE_STRING, FD.LABEL_REQUIRED)
+           for k in range(4)])
+
+
+def order_class():
+    """The repo's nested test message (tests/proto_helpers.py:63-78):
+    Order {order_id required int64; items repeated Item; note optional
+    string}, Item {sku required string; qty optional int32; tags repeated
+    string}."""
+    from kpw_tpu_torch.models.proto_bridge import FD
+
+    item = WireDescriptor("Item", [
+        WireField("sku", 1, FD.TYPE_STRING, FD.LABEL_REQUIRED),
+        WireField("qty", 2, FD.TYPE_INT32, FD.LABEL_OPTIONAL),
+        WireField("tags", 3, FD.TYPE_STRING, FD.LABEL_REPEATED)])
+    return wire_message("Order", [
+        WireField("order_id", 1, FD.TYPE_INT64, FD.LABEL_REQUIRED),
+        WireField("items", 2, FD.TYPE_MESSAGE, FD.LABEL_REPEATED, item),
+        WireField("note", 3, FD.TYPE_STRING, FD.LABEL_OPTIONAL)])
+
+
+def varints(v: np.ndarray) -> tuple:
+    """Base-128 varints of int64 values (two's complement, as protobuf
+    writes int64): a (n, 10) byte matrix and each value's length."""
+    u = np.asarray(v, np.int64).astype(np.uint64)
+    shifts = np.arange(10, dtype=np.uint64) * np.uint64(7)
+    rest = u[:, None] >> shifts  # the value above each byte
+    lens = np.maximum((rest != 0).sum(1), 1)
+    more = np.arange(10) < (lens - 1)[:, None]
+    body = (rest & np.uint64(0x7F)).astype(np.uint8)
+    return body | (more * 0x80).astype(np.uint8), lens
+
+
+def encode_flat(columns: list) -> list:
+    """Serialize flat messages of required fields, in field-number order as
+    protobuf does: ``columns`` is a list of (field number, int64 values)
+    for varint fields and (field number, list of bytes) for string fields.
+    Returns one ``bytes`` per record."""
+    blocks, masks = [], []
+    n = len(columns[0][1])
+    for number, values in columns:
+        if isinstance(values, np.ndarray):
+            body, lens = varints(values)
+            blocks += [np.full((n, 1), number << 3, np.uint8), body]
+            masks += [np.ones((n, 1), bool), np.arange(10) < lens[:, None]]
+        else:
+            sizes = np.fromiter(map(len, values), np.int64, n)
+            head, head_lens = varints(sizes)
+            width = int(sizes.max())
+            data = np.zeros((n, width), np.uint8)
+            data_mask = np.arange(width) < sizes[:, None]
+            data[data_mask] = np.frombuffer(b"".join(values), np.uint8)
+            blocks += [np.full((n, 1), number << 3 | 2, np.uint8), head, data]
+            masks += [np.ones((n, 1), bool), np.arange(10) < head_lens[:, None],
+                      data_mask]
+    mask = np.concatenate(masks, 1)
+    buf = np.concatenate(blocks, 1)[mask].tobytes()
+    offsets = np.concatenate([[0], np.cumsum(mask.sum(1))])
+    return [buf[a:b] for a, b in zip(offsets[:-1].tolist(), offsets[1:].tolist())]
+
+
+def replay_payloads(rows: int, seed: int = 6) -> list:
+    """The e2e probe's records (bench.py:3769-3792), serialized: i0..i7
+    from [0, 1,000,000) and s0..s3 from the 100 values ``cat_%03d``, drawn
+    in bench.py's order from ``seed``."""
+    rng = np.random.default_rng(seed)
+    ints = rng.integers(0, 1_000_000, (rows, 8))
+    sidx = rng.integers(0, 100, (rows, 4))
+    pool = [b"cat_%03d" % j for j in range(100)]
+    return encode_flat([(k + 1, ints[:, k].astype(np.int64)) for k in range(8)]
+                       + [(k + 9, [pool[j] for j in sidx[:, k]]) for k in range(4)])
+
+
+def varint(v: int) -> bytes:
+    out = bytearray()
+    v &= (1 << 64) - 1
+    while True:
+        if v < 0x80:
+            out.append(v)
+            return bytes(out)
+        out.append(v & 0x7F | 0x80)
+        v >>= 7
+
+
+def order_payloads(order_id, n_items, sku, qty) -> list:
+    """Serialize Order rows as protobuf does: every item has a sku and a
+    qty and no tags, no order has a note."""
+    out, at = [], 0
+    for oid, k in zip(order_id.tolist(), n_items.tolist()):
+        rec = [b"\x08", varint(oid)]
+        for _ in range(k):
+            item = (b"\x0a" + varint(len(sku[at])) + sku[at]
+                    + b"\x10" + varint(int(qty[at])))
+            rec += [b"\x12", varint(len(item)), item]
+            at += 1
+        out.append(b"".join(rec))
+    return out
 
 
 def order_rows(rng, n: int):
@@ -1086,14 +1216,21 @@ def order_rows(rng, n: int):
 
 def nested_setup(small: bool = False):
     """BASELINE config 5: 32,768 Order rows in four row groups of 8,192
-    (small: two of 4,096), shredded with numpy, default properties."""
+    (small: two of 4,096), serialized and shredded from the wire by the
+    port's ``ProtoColumnarizer`` (its fused nested route); default
+    properties."""
     from kpw_tpu_torch.core import WriterProperties
+    from kpw_tpu_torch.models.proto_bridge import ProtoColumnarizer, proto_to_schema
 
-    schema = order_schema()
+    order = order_class()
+    schema = proto_to_schema(order)
+    shredder = ProtoColumnarizer(order, schema)
+    check(shredder.wire_capable, "the port's shredder cannot take Order's wire path")
     rows, n_groups = ((4_096, 2) if small
                       else (NESTED_ROWS // NESTED_GROUPS, NESTED_GROUPS))
     rng = np.random.default_rng(5)
-    groups = [shred_orders(schema, *order_rows(rng, rows)) for _ in range(n_groups)]
+    groups = [shredder.columnarize_payloads(order_payloads(*order_rows(rng, rows)))
+              for _ in range(n_groups)]
     return groups, schema, WriterProperties()
 
 
@@ -1283,6 +1420,21 @@ COUNTED = (("backend", "pack_pages_multi"), ("backend", "level_stats_multi"),
 RECORDED = ("pack_pages_multi", "level_stats_multi", "delta_page_streams")
 
 
+def auto_choice(groups, schema, props, device="cuda"):
+    """What ``"auto"`` picks for a writer of these batches: its first row
+    group through the ``CalibratingEncoder`` (``runtime/select.py``).
+    Returns the writer's ``AutoChoice``."""
+    from kpw_tpu_torch.core import ParquetFileWriter
+    from kpw_tpu_torch.runtime.select import AutoChoice, make_encoder
+
+    choice = AutoChoice(device)
+    w = ParquetFileWriter(io.BytesIO(), schema, props, encoder=make_encoder(
+        props.encoder_options(), "auto", device, choice))
+    w.write_batch(groups[0])
+    w.close()
+    return choice
+
+
 def writer_path(name: str, groups, schema, props, device="cuda") -> dict:
     """One writer main path: the batches through ``ParquetFileWriter`` +
     ``CudaChunkEncoder`` row group by row group and through the writer's
@@ -1294,8 +1446,9 @@ def writer_path(name: str, groups, schema, props, device="cuda") -> dict:
     through the native assembler (``_encode_native_chunk``) and no level
     page through the Python replay of its run list (``_LevelPages.blob``).
     The encoder's device routes and the string planner's pack jobs are
-    counted.  Returns the counts and the arguments of every call of the
-    ``RECORDED`` routes."""
+    counted.  Returns the counts, the arguments of every call of the
+    ``RECORDED`` routes and the rows/s of each file by key of
+    :data:`WRITERS`."""
     from kpw_tpu_torch.ops import backend, packing
 
     modules = {"backend": backend, "packing": packing}
@@ -1356,7 +1509,7 @@ def writer_path(name: str, groups, schema, props, device="cuda") -> dict:
         + "; pipeline stage busy s "
         + ", ".join(f"{k} {v:.3f}" for k, v in out["busy"].items())
         + f"; native assembler column chunks {asm}; device routes called: {calls}")
-    return calls, recorded
+    return calls, recorded, {key: rows / seconds[key] for key, _, _, _ in WRITERS}
 
 
 def check_path_inputs(torch, name: str, recorded) -> dict:
@@ -1509,6 +1662,241 @@ def group_breakdown(torch, name: str, batch, schema, props) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the stream phase: the streaming writer end to end
+# ---------------------------------------------------------------------------
+
+# the arms of the stream phase: (label, encoder backend, worker threads)
+STREAM_ARMS = (("cuda x1", "cuda", 1), ("cuda x4", "cuda", 4),
+               ("native x1", "native", 1), ("native x4", "native", 4),
+               ("auto x1", "auto", 1))
+
+
+def stream_builder(broker, topic: str, target: str, backend: str, threads: int,
+                   device: str, name: str, deterministic: bool = False,
+                   file_size: int = 4 * 1024 * 1024):
+    """The e2e probe's Builder (bench.py:3952-3960) over a LocalFileSystem:
+    SNAPPY, autotune, batch ingest, 4 MiB files (``file_size``) of row
+    groups half that size, files time-rotated after 0.5 s.
+    ``deterministic``: autotune, time rotation and the row-group pipeline
+    off, and polls of 64 records from fetches of 2,048, so that the run's
+    files depend on its records alone: each append then holds 64 records
+    (while the fetcher stays ahead), and the size checks that rotate files
+    and cut row groups see every flushed row group's final size."""
+    from kpw_tpu_torch import Builder, LocalFileSystem
+
+    b = (Builder().broker(broker).topic(topic).proto_class(replay_class())
+         .target_dir(target).filesystem(LocalFileSystem())
+         .instance_name(name).group_id(name).thread_count(threads)
+         .encoder_backend(backend, device=device)
+         .compression("snappy").autotune(not deterministic).batch_ingest(True)
+         .max_file_size(file_size).block_size(file_size // 2)
+         .max_file_open_duration_seconds(3600.0 if deterministic else 0.5))
+    if deterministic:
+        b.pipeline(False).batch_size(64).fetch_max_records(2048)
+    return b
+
+
+def drain(w, broker, topic: str, group: str, parts: int, rows: int,
+          deadline_s: float = 300.0) -> tuple:
+    """Start ``w`` and wait until every record is written and then until
+    every offset is committed with ack-lag 0 (bench.py:3965-3990): (seconds
+    to all written, seconds to drained).  Fails at the deadline."""
+    t0 = time.perf_counter()
+    w.start()
+    deadline = t0 + deadline_s
+    t_written = None
+    while time.perf_counter() < deadline:
+        if t_written is None and w.total_written_records >= rows:
+            t_written = time.perf_counter() - t0
+        if (t_written is not None
+                and sum(broker.committed(group, topic, p) for p in range(parts)) >= rows
+                and w.ack_lag()["unacked_records"] == 0):
+            return t_written, time.perf_counter() - t0
+        time.sleep(0.002)
+    fail(f"stream {group}: not drained within {deadline_s:.0f} s: written "
+         f"{w.total_written_records} of {rows}, committed "
+         f"{sum(broker.committed(group, topic, p) for p in range(parts))}, "
+         f"ack lag {w.ack_lag()}")
+
+
+def published(target: str, rows: int, label: str) -> list:
+    """Every published file under ``target``, verified by the port's
+    ``verify_file``; their footers' row counts must sum to ``rows``.
+    Returns the reports in publish order (the file names start with the
+    publish time)."""
+    from kpw_tpu_torch import LocalFileSystem
+    from kpw_tpu_torch.io.verify import verify_dir
+
+    reports = sorted(verify_dir(LocalFileSystem(), target), key=lambda r: r.path)
+    bad = [(r.path, r.errors) for r in reports if not r.ok]
+    check(not bad, f"stream {label}: files failed verification: {bad[:3]}")
+    total = sum(r.num_rows for r in reports)
+    check(total == rows, f"stream {label}: footers hold {total} rows, not {rows}")
+    return reports
+
+
+def span_sums(recorder) -> dict:
+    """A SpanRecorder's spans summed by stage, in ``STAGE_NAMES`` order:
+    name -> (seconds, count)."""
+    from kpw_tpu_torch.utils.tracing import STAGE_NAMES
+
+    sums: dict = {}
+    for name, _, _, _, seconds, _ in recorder.snapshot():
+        t, n = sums.get(name, (0.0, 0))
+        sums[name] = (t + seconds, n + 1)
+    return {k: sums[k] for k in STAGE_NAMES if k in sums}
+
+
+def stream_arm(broker, topic: str, parts: int, rows: int, backend: str,
+               threads: int, device: str, root: str, name: str,
+               tracing: bool = False) -> dict:
+    """One arm: drain the primed topic through a fresh writer and consumer
+    group, close it, verify its files.  Returns records/s (to all written),
+    the drain time, the files, the rows per row group and, with
+    ``tracing``, the SpanRecorder's spans summed by stage."""
+    target = os.path.join(root, name)
+    b = stream_builder(broker, topic, target, backend, threads, device, name)
+    if tracing:
+        b.tracing(True)
+    w = b.build()
+    try:
+        t_written, t_drained = drain(w, broker, topic, name, parts, rows)
+        spans = span_sums(w.span_recorder) if tracing else {}
+    finally:
+        w.close()
+    reports = published(target, rows, name)
+    groups = sum(r.row_groups for r in reports)
+    return {"rows_s": rows / t_written, "written_s": t_written,
+            "drained_s": t_drained, "files": len(reports),
+            "rows_per_group": rows / groups, "spans": spans,
+            "choice": w.encoder_choice}
+
+
+def deterministic_files(payloads: list, backend: str, device: str, root: str,
+                        file_size: int) -> list:
+    """The deterministic arm: one partition, one worker thread, autotune
+    and time rotation off, ``close()`` after every record is written.  The
+    files rotated by size are published and acked; ``close()`` abandons
+    the open one, unacked, as the reference does (KPW.java:381-398).  The
+    rotation that the last append may trigger races ``close()``, so the
+    last file may or may not be published.  Returns the published files'
+    bytes in publish order."""
+    from kpw_tpu_torch import FakeBroker
+
+    rows = len(payloads)
+    broker = FakeBroker()
+    broker.create_topic("det", 1)
+    broker.produce_many("det", payloads)
+    name = f"det-{backend}"
+    target = os.path.join(root, name)
+    w = stream_builder(broker, "det", target, backend, 1, device, name,
+                       deterministic=True, file_size=file_size).build()
+    try:
+        w.start()
+        deadline = time.perf_counter() + 300.0
+        while w.total_written_records < rows and time.perf_counter() < deadline:
+            time.sleep(0.002)
+        check(w.total_written_records >= rows, f"stream {name}: wrote "
+              f"{w.total_written_records} of {rows} records")
+    finally:
+        w.close()
+    acked = broker.committed(name, "det", 0)
+    reports = published(target, acked, name)
+    check(len(reports) >= 2, f"stream {name}: {len(reports)} files published")
+    out = []
+    for r in reports:
+        with open(r.path, "rb") as f:
+            out.append(f.read())
+    return out
+
+
+def phase_stream(torch, counters: dict, small: bool = False, device: str = "cuda") -> dict:
+    """The streaming writer through the port's public API: ``Builder`` →
+    ``start()`` → poll → wire shred → append → row groups encoded →
+    size/time rotation → durable tmp→final publish → offset ack →
+    ``close()``, on BASELINE config 1's records in the shape of the e2e
+    probe (bench.py:3769-3990): 400,000 records (small: 20,000) on a
+    FakeBroker topic of 4 partitions primed before ``start()``.  Each arm
+    of :data:`STREAM_ARMS` must drain to every offset committed with
+    ack-lag 0, every published file must verify and their footers' rows
+    sum to the records; a card arm must launch the pack kernel.  Then the
+    deterministic arm's files from the ``"cuda"``, ``"native"`` and
+    ``"cpu"`` encoders must be byte-identical, file for file.  Returns the
+    launches of the arms by kernel."""
+    import tempfile
+
+    from kpw_tpu_torch import FakeBroker
+
+    rows = STREAM_SMALL if small else STREAM_RECORDS
+    parts = 4
+    t0 = time.perf_counter()
+    payloads = replay_payloads(rows)
+    broker = FakeBroker()
+    broker.create_topic("e2e", parts)
+    broker.produce_many("e2e", payloads)
+    say(f"[stream] {rows} records, {sum(map(len, payloads))} bytes on the wire, "
+        f"{parts} partitions, primed in {time.perf_counter() - t0:.2f} s")
+    launches = dict.fromkeys(counters, 0)
+    results = {}
+    with tempfile.TemporaryDirectory(prefix="kpw_stream_") as root:
+        for label, backend, threads in STREAM_ARMS:
+            for f in counters.values():
+                f.launches = 0
+            name = label.replace(" ", "")
+            r = stream_arm(broker, "e2e", parts, rows, backend, threads, device, root,
+                           name, tracing=(label == "cuda x1"))
+            got = {k: f.launches for k, f in counters.items()}
+            if backend == "cuda" and device == "cuda":
+                check(got["bitpack"] > 0, f"stream {label}: the pack kernel never "
+                      f"launched: {got}")
+            launches = {k: launches[k] + got[k] for k in counters}
+            results[label] = r
+            say(f"[stream {label}] {r['rows_s']:.0f} records/s to all written "
+                f"({r['written_s']:.3f} s; drained, committed {rows} with ack lag 0, "
+                f"in {r['drained_s']:.3f} s); {r['files']} files verified, footers "
+                f"{rows} rows, {r['rows_per_group']:.0f} rows per row group; "
+                f"launches {got}")
+        spans = results["cuda x1"]["spans"]
+        check(all(k in spans for k in ("consumer.fetch", "worker.shred",
+                                       "rowgroup.io_write")),
+              f"stream cuda x1: stages missing from the spans: {sorted(spans)}")
+        say("[stream cuda x1] spans (SpanRecorder, summed over threads): "
+            + ", ".join(f"{k} {t * 1e3:.1f} ms x{n}" for k, (t, n) in spans.items()))
+        choice = results["auto x1"]["choice"]
+        check(choice is not None and choice.backend in ("cuda", "native"),
+              "stream auto x1: the writer made no encoder choice")
+        for threads in (1, 4):
+            card = results[f"cuda x{threads}"]["rows_s"]
+            host = results[f"native x{threads}"]["rows_s"]
+            say(f"[stream x{threads}] auto picked {choice.backend} on its first row "
+                f"group (cuda {choice.rows_per_s['cuda']:.0f} / native "
+                f"{choice.rows_per_s['native']:.0f} rows/s); arms cuda {card:.0f} / "
+                f"native {host:.0f} records/s: "
+                f"{'cuda' if card > host else 'native'} faster here")
+        if device == "cuda":
+            def profiled():
+                stream_arm(broker, "e2e", parts, rows, "cuda", 1, device, root,
+                           "profiled")
+            say("[stream cuda x1] profiled run: " + device_profile(torch, profiled))
+        # small: files of 256 KiB, so that the rehearsal publishes several
+        size = (256 if small else 4 * 1024) * 1024
+        files = {backend: deterministic_files(payloads, backend, device, root, size)
+                 for backend in ("cuda", "native", "cpu")}
+    # file for file over the files every encoder published: only the last
+    # size rotation, which races close(), may be missing from some
+    common = min(map(len, files.values()))
+    sizes = {k: [len(b) for b in v] for k, v in files.items()}
+    check(common >= 2 and max(map(len, files.values())) - common <= 1
+          and files["cuda"][:common] == files["native"][:common] == files["cpu"][:common],
+          f"stream: the deterministic arm's files differ between encoders: {sizes}")
+    say(f"[stream deterministic] 1 partition, 1 thread, autotune and time rotation "
+        f"off, no row-group pipeline, polls of 64, closed after all written: cuda, "
+        f"native and cpu files byte-identical, "
+        f"file for file ({common} files published by size by all three; bytes {sizes})")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> None:
     import torch
@@ -1525,6 +1913,7 @@ def main() -> None:
     from kpw_tpu_torch.ops.bitpack import pack_pages
     from kpw_tpu_torch.ops.delta import delta_page_streams
     from kpw_tpu_torch.ops.rank import hist_dict, rank_pages
+    from kpw_tpu_torch.runtime.select import probe_link
 
     counters = {"bitpack": pack_pages, "hist": hist_dict, "rank": rank_pages,
                 "delta": delta_page_streams}
@@ -1549,6 +1938,11 @@ def main() -> None:
     recs = phase_kernels(torch, timer)
     cases, launches = drive("flagship", ("bitpack", "hist", "rank"),
                             flagship_path, torch)
+    link = probe_link()
+    say(f"[select] link: pinned host-to-device {link['h2d_mbps']:.0f} MB/s, launch "
+        f"round trip {link['launch_ms']:.3f} ms; \"auto\" times each writer's first "
+        "row group through both encoders (beside each path: its first row group, "
+        "outside the counted runs)")
     needs = {"writer": ("bitpack",), "levels": ("bitpack",), "nested": ("bitpack",),
              "encodings": ("delta",), "strings": ("bitpack",), "cfg3": ("delta",)}
     inputs, delta_shapes = {}, {}
@@ -1558,8 +1952,15 @@ def main() -> None:
         # set-up (allocator growth, library loads); it counts no launch
         write_batches(CudaChunkEncoder(inputs[name][2].encoder_options()),
                       *setup(small=True))
-        (calls, recorded), got = drive(name, needs[name], writer_path, name,
-                                       *inputs[name])
+        (calls, recorded, rates), got = drive(name, needs[name], writer_path, name,
+                                              *inputs[name])
+        choice = auto_choice(*inputs[name])  # after the path's counts
+        faster = "cuda" if rates["card"] > rates["native"] else "native"
+        say(f"[{name}] auto picks {choice.backend} (first row group cuda "
+            f"{choice.rows_per_s['cuda']:.0f} / native "
+            f"{choice.rows_per_s['native']:.0f} rows/s); CudaChunkEncoder "
+            f"{rates['card']:.0f} / NativeChunkEncoder {rates['native']:.0f} rows/s: "
+            f"{faster} faster here")
         # the path's kernels replayed on its own inputs, after its launches
         # were read
         for kernel, e in check_path_inputs(torch, name, recorded).items():
@@ -1580,6 +1981,8 @@ def main() -> None:
                   f"{calls['pack_pages_multi']} jobs, {calls['_pad_rows']} "
                   "padded index copies")
         launches = {k: launches[k] + got[k] for k in counters}
+    got = phase_stream(torch, counters)
+    launches = {k: launches[k] + got[k] for k in counters}
     say(f"[main path] launches: {launches}")
 
     # timing and profiles after the counted runs, so they count no launch

@@ -2,19 +2,28 @@
 
 A package of its own beside ``kpw_tpu``: it imports neither JAX nor any
 module of ``kpw_tpu`` and keeps its own copy of what it needs (``core``,
-``utils.tracing``, and the host C++ in ``native/src``).  Ported so far is
-the row-group encode path — the flagship step
-(``parallel.sharded.encode_step_single``, ``entry.entry``) and the writer's
-device backend (``ops.backend.CudaChunkEncoder``), every column family the
-JAX package's TPU encoder carries, string dictionaries included — with the
-TPU kernels of that path as hand-written CUDA kernels (``csrc/``, built at
-first use by ``ops/_build.py``).  Beneath the device backend sits the
-port's own native host layer (``native/``: codecs, encode primitives and
-the nogil page assembler, built with g++ at first use into ``_build/``), as
-the JAX package's TPU encoder sits on its native encoder.
+``utils``, the host C++ in ``native/src``, and the streaming writer's
+``runtime``, ``ingest``, ``io`` and ``models`` layers).  The public API is
+the reference's: ``Builder`` + ``start()`` / ``close()``, which consumes
+protobuf records from a broker, shreds them from the wire, encodes row
+groups with ``ops.backend.CudaChunkEncoder`` on the card, rotates and
+publishes files atomically and acks offsets only after a file is
+published.  Ported beneath it is the row-group encode path — the flagship
+step (``parallel.sharded.encode_step_single``, ``entry.entry``) and the
+writer's device backend, every column family the JAX package's TPU
+encoder carries — with the TPU kernels of that path as hand-written CUDA
+kernels (``csrc/``, built at first use by ``ops/_build.py``), over the
+port's own native host layer (``native/``: codecs, encode primitives, the
+nogil page assembler and the wire shredders, built with g++ at first use
+into ``_build/``).
 
-Entry points run on the card unless the caller passes ``device="cpu"``;
+Entry points run on the card unless the caller passes ``device="cpu"``
+(or, on the ``Builder``, picks the ``"cpu"`` or ``"native"`` encoder);
 ops run on the device of the tensors they are given (see ``device.py``).
 """
 
 __version__ = "0.1.0"
+
+from .runtime import Builder  # noqa: E402,F401
+from .ingest import FakeBroker  # noqa: E402,F401
+from .io import LocalFileSystem, MemoryFileSystem  # noqa: E402,F401

@@ -1,18 +1,24 @@
 """Lazy g++ build and ctypes bindings of the port's native host library.
 
-Two artifacts, both compiled from ``native/src`` into ``kpw_tpu_torch/_build``
+Three artifacts, all compiled from ``native/src`` into ``kpw_tpu_torch/_build``
 at first use, never next to the sources:
 
-- ``_kpw_torch_native.so`` (``codecs.cc`` + ``encode.cc``), a plain C ABI
-  loaded with ctypes (:class:`NativeLib`);
+- ``_kpw_torch_native.so`` (``codecs.cc`` + ``encode.cc`` + the wire
+  shredders ``shred.cc`` + ``shred_nested.cc``), a plain C ABI loaded with
+  ctypes (:class:`NativeLib`);
 - ``_kpw_torch_assemble.so`` (``assemble.cc`` + ``encode.cc`` + ``codecs.cc``),
   the CPython extension ``_kpw_torch_assemble`` that assembles a column
-  chunk's pages with the interpreter lock released.
+  chunk's pages with the interpreter lock released;
+- ``_kpw_torch_pyshred.so`` (``pyshred.cc`` + ``shred.cc`` +
+  ``shred_nested.cc``), the CPython extension ``_kpw_torch_pyshred`` that
+  shreds protobuf wire records in place, with the interpreter lock
+  released.  The decoders compile into it and into the ctypes library from
+  the same sources, so the two cannot drift.
 
 Each build tries ``-O3 -march=native``, then ``-O3``, then both again without
 zstd.  A cached artifact is reused only while it is newer than its sources
 and its tag matches this host (``-march=native`` code is ISA-specific; the
-extension's tag also pins the CPython ABI).  Builds write a temp file and
+extensions' tag also pins the CPython ABI).  Builds write a temp file and
 rename it, under an ``fcntl.flock`` on ``_build/native.lock``, so that
 parallel test workers compile each artifact once and never load a partial
 one.
@@ -29,13 +35,19 @@ import tempfile
 _NATIVE_DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_NATIVE_DIR, "src")
 BUILD_DIR = os.path.join(os.path.dirname(_NATIVE_DIR), "_build")
-LIB_SRCS = [os.path.join(SRC_DIR, "codecs.cc"), os.path.join(SRC_DIR, "encode.cc")]
+LIB_SRCS = [os.path.join(SRC_DIR, "codecs.cc"), os.path.join(SRC_DIR, "encode.cc"),
+            os.path.join(SRC_DIR, "shred.cc"), os.path.join(SRC_DIR, "shred_nested.cc")]
 LIB_SO = os.path.join(BUILD_DIR, "_kpw_torch_native.so")
 ASSEMBLE_NAME = "_kpw_torch_assemble"
 ASSEMBLE_SRCS = [os.path.join(SRC_DIR, "assemble.cc"),
                  os.path.join(SRC_DIR, "encode.cc"),
                  os.path.join(SRC_DIR, "codecs.cc")]
 ASSEMBLE_SO = os.path.join(BUILD_DIR, ASSEMBLE_NAME + ".so")
+PYSHRED_NAME = "_kpw_torch_pyshred"
+PYSHRED_SRCS = [os.path.join(SRC_DIR, "pyshred.cc"),
+                os.path.join(SRC_DIR, "shred.cc"),
+                os.path.join(SRC_DIR, "shred_nested.cc")]
+PYSHRED_SO = os.path.join(BUILD_DIR, PYSHRED_NAME + ".so")
 _LOCK = os.path.join(BUILD_DIR, "native.lock")
 
 
@@ -57,8 +69,8 @@ def _host_tag() -> str:
     return hashlib.sha256(tag.encode()).hexdigest()[:16]
 
 
-def _assemble_tag() -> str:
-    """The host tag plus the CPython ABI tag: the extension is compiled
+def _extension_tag() -> str:
+    """The host tag plus the CPython ABI tag: an extension is compiled
     against Python.h, so a build for another interpreter must not load."""
     import sys
 
@@ -128,7 +140,69 @@ def build_assemble() -> str:
     import sysconfig
 
     inc = sysconfig.get_paths()["include"]
-    return _locked_build(ASSEMBLE_SO, ASSEMBLE_SRCS, _assemble_tag(), [f"-I{inc}"])
+    return _locked_build(ASSEMBLE_SO, ASSEMBLE_SRCS, _extension_tag(), [f"-I{inc}"])
+
+
+def build_pyshred() -> str:
+    """Path of an up-to-date ``_kpw_torch_pyshred`` extension, built if
+    needed."""
+    import sysconfig
+
+    inc = sysconfig.get_paths()["include"]
+    return _locked_build(PYSHRED_SO, PYSHRED_SRCS, _extension_tag(), [f"-I{inc}"])
+
+
+class NestedShredResult:
+    """Owner of one kpw_proto_shred_nested output; numpy views are COPIES
+    (the C++ arena is freed on close / GC)."""
+
+    def __init__(self, cdll, handle) -> None:
+        self._c = cdll
+        self._h = handle
+
+    def _copy(self, ptr, n, dtype):
+        import numpy as np
+
+        if n == 0 or not ptr:
+            return np.zeros(0, dtype)
+        return np.ctypeslib.as_array(
+            ctypes.cast(ptr, ctypes.POINTER(ctypes.c_uint8)),
+            shape=(n * np.dtype(dtype).itemsize,)).view(dtype).copy()
+
+    def values(self, leaf: int, dtype):
+        import numpy as np
+
+        nbytes = self._c.kpw_nested_value_bytes(self._h, leaf)
+        n = nbytes // np.dtype(dtype).itemsize
+        return self._copy(self._c.kpw_nested_values(self._h, leaf), n, dtype)
+
+    def spans(self, leaf: int):
+        import numpy as np
+
+        n = self._c.kpw_nested_nspans(self._h, leaf)
+        return (self._copy(self._c.kpw_nested_spos(self._h, leaf), n, np.int64),
+                self._copy(self._c.kpw_nested_slen(self._h, leaf), n, np.int32))
+
+    def levels(self, leaf: int):
+        import numpy as np
+
+        n = self._c.kpw_nested_nlevels(self._h, leaf)
+        return (self._copy(self._c.kpw_nested_defs(self._h, leaf), n, np.uint8),
+                self._copy(self._c.kpw_nested_reps(self._h, leaf), n, np.uint8))
+
+    def close(self) -> None:
+        if self._h:
+            self._c.kpw_nested_free(self._h)
+            self._h = None
+
+    def __del__(self) -> None:  # pragma: no cover - GC safety net
+        try:
+            self.close()
+        # lint: swallowed-exceptions ok — __del__ runs at arbitrary GC
+        # points (possibly interpreter teardown); raising here aborts the
+        # process with an unraisable-exception warning, not a diagnosis
+        except Exception:
+            pass
 
 
 class NativeLib:
@@ -214,6 +288,35 @@ class NativeLib:
         cdll.kpw_byte_stream_split.restype = ctypes.c_int
         cdll.kpw_byte_stream_split.argtypes = [
             ctypes.c_void_p, c_sz, c_sz, c_p]
+        c_vpp = ctypes.POINTER(ctypes.c_void_p)
+        cdll.kpw_proto_shred.restype = ctypes.c_int64
+        cdll.kpw_proto_shred.argtypes = [
+            c_p, c_i64p, ctypes.c_int64, ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_uint32), c_p, c_p,
+            c_vpp, c_vpp, c_vpp, c_vpp]
+        cdll.kpw_gather_spans.restype = None
+        cdll.kpw_gather_spans.argtypes = [
+            c_p, c_i64p, c_i32p, ctypes.c_int64, c_p]
+        h_p = ctypes.c_void_p
+        cdll.kpw_proto_shred_nested.restype = ctypes.c_int64
+        cdll.kpw_proto_shred_nested.argtypes = (
+            [c_p, c_i64p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+             c_u32p, c_p, c_p] + [c_i32p] * 12 + [ctypes.POINTER(h_p)])
+        for name in ("kpw_nested_value_bytes", "kpw_nested_nspans",
+                     "kpw_nested_nlevels"):
+            fn = getattr(cdll, name)
+            fn.restype = ctypes.c_int64
+            fn.argtypes = [h_p, ctypes.c_int32]
+        for name, rt in (("kpw_nested_values", ctypes.c_void_p),
+                         ("kpw_nested_spos", ctypes.POINTER(ctypes.c_int64)),
+                         ("kpw_nested_slen", ctypes.POINTER(ctypes.c_int32)),
+                         ("kpw_nested_defs", ctypes.POINTER(ctypes.c_uint8)),
+                         ("kpw_nested_reps", ctypes.POINTER(ctypes.c_uint8))):
+            fn = getattr(cdll, name)
+            fn.restype = rt
+            fn.argtypes = [h_p, ctypes.c_int32]
+        cdll.kpw_nested_free.restype = None
+        cdll.kpw_nested_free.argtypes = [h_p]
 
     # -- snappy ------------------------------------------------------------
     def snappy_compress(self, data: bytes) -> bytes:
@@ -487,6 +590,89 @@ class NativeLib:
             raise RuntimeError(f"kpw_byte_stream_split rc={rc}")
         return out.raw[: n * width]
 
+    def proto_shred(self, buf: bytes, rec_offsets, n_fields: int,
+                    fnum, kinds, flags, out_vals, out_pos, out_len,
+                    out_pres) -> int:
+        """Batch wire-format decode (kpw_proto_shred).  ``out_*`` are lists
+        (len n_fields) of numpy arrays or None; returns the first failing
+        record index, or -1 when the whole batch decoded clean."""
+        import numpy as np
+
+        offs = np.ascontiguousarray(rec_offsets, np.int64)
+        n_rec = len(offs) - 1
+
+        def ptr_array(arrs):
+            a = (ctypes.c_void_p * n_fields)()
+            for i, arr in enumerate(arrs):
+                a[i] = arr.ctypes.data if arr is not None else None
+            return ctypes.cast(a, ctypes.POINTER(ctypes.c_void_p))
+
+        rc = self._c.kpw_proto_shred(
+            buf, offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            n_rec, n_fields,
+            np.ascontiguousarray(fnum, np.uint32).ctypes.data_as(
+                ctypes.POINTER(ctypes.c_uint32)),
+            bytes(np.ascontiguousarray(kinds, np.uint8)),
+            bytes(np.ascontiguousarray(flags, np.uint8)),
+            ptr_array(out_vals), ptr_array(out_pos), ptr_array(out_len),
+            ptr_array(out_pres))
+        if rc == -2:
+            raise RuntimeError("kpw_proto_shred: field number table overflow")
+        return rc
+
+    def proto_shred_nested(self, buf: bytes, rec_offsets, plan):
+        """Batch nested wire-format decode (kpw_proto_shred_nested).
+        ``plan`` carries the node-table arrays (models.proto_bridge
+        _NestedPlan).  Returns a :class:`NestedShredResult` on success or
+        the failing record index (int) when the batch needs the Python
+        fallback."""
+        import numpy as np
+
+        offs = np.ascontiguousarray(rec_offsets, np.int64)
+        n_rec = len(offs) - 1
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        u32p = ctypes.POINTER(ctypes.c_uint32)
+        keep = []  # anchor temporaries across the C call
+
+        def ip(a):
+            arr = np.ascontiguousarray(a, np.int32)
+            keep.append(arr)
+            return arr.ctypes.data_as(i32p)
+
+        fnum = np.ascontiguousarray(plan.fnum, np.uint32)
+        keep.append(fnum)
+        handle = ctypes.c_void_p()
+        rc = self._c.kpw_proto_shred_nested(
+            buf, offs.ctypes.data_as(i64p), n_rec,
+            plan.n_nodes, plan.n_leaves,
+            fnum.ctypes.data_as(u32p),
+            bytes(np.ascontiguousarray(plan.kind, np.uint8)),
+            bytes(np.ascontiguousarray(plan.flags, np.uint8)),
+            ip(plan.child_begin), ip(plan.child_end), ip(plan.leaf_idx),
+            ip(plan.ftab), ip(plan.ftab_off), ip(plan.max_fn),
+            ip(plan.enum_vals), ip(plan.enum_off), ip(plan.enum_len),
+            ip(plan.null_leaves), ip(plan.null_off), ip(plan.null_len),
+            ctypes.byref(handle))
+        del keep
+        if rc >= 0:
+            return int(rc)
+        return NestedShredResult(self._c, handle)
+
+    def gather_spans(self, src: bytes, pos, lens) -> bytes:
+        """Concatenate spans (pos[i], lens[i]) of ``src`` — the string-column
+        payload assembly after proto_shred."""
+        import numpy as np
+
+        p = np.ascontiguousarray(pos, np.int64)
+        ln = np.ascontiguousarray(lens, np.int32)
+        total = int(ln.sum(dtype=np.int64))
+        out = ctypes.create_string_buffer(max(total, 1))
+        self._c.kpw_gather_spans(
+            src, p.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            ln.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), len(p), out)
+        return out.raw[:total]
+
     def rle_hybrid(self, values, width: int) -> bytes:
         """RLE/bit-pack hybrid stream, byte-identical to
         ``core.encodings.rle_hybrid_encode``."""
@@ -537,14 +723,22 @@ def load() -> NativeLib:
     return NativeLib(ctypes.CDLL(build_lib()))
 
 
-def load_assemble():
-    """The ``_kpw_torch_assemble`` extension module, built if needed."""
+def _load_extension(name: str, path: str):
     import importlib.machinery
     import importlib.util
 
-    path = build_assemble()
-    loader = importlib.machinery.ExtensionFileLoader(ASSEMBLE_NAME, path)
-    spec = importlib.util.spec_from_loader(ASSEMBLE_NAME, loader, origin=path)
+    loader = importlib.machinery.ExtensionFileLoader(name, path)
+    spec = importlib.util.spec_from_loader(name, loader, origin=path)
     mod = importlib.util.module_from_spec(spec)
     loader.exec_module(mod)
     return mod
+
+
+def load_assemble():
+    """The ``_kpw_torch_assemble`` extension module, built if needed."""
+    return _load_extension(ASSEMBLE_NAME, build_assemble())
+
+
+def load_pyshred():
+    """The ``_kpw_torch_pyshred`` extension module, built if needed."""
+    return _load_extension(PYSHRED_NAME, build_pyshred())

@@ -44,6 +44,7 @@ pages from their run tables included).
 
 from __future__ import annotations
 
+import contextlib
 import struct
 
 import numpy as np
@@ -532,7 +533,12 @@ class CudaChunkEncoder(NativeChunkEncoder):
     ``device="cpu"`` runs the same plan with the plain PyTorch versions of
     the kernels.  Either way it raises when the port's native library or
     assembler did not build: the host work it leaves to the superclass must
-    not fall back to the Python page loops."""
+    not fall back to the Python page loops.
+
+    On the card each encoder has a stream of its own, and its uploads,
+    launches and readbacks run on it: several writer workers, each with
+    its encoder, then neither queue behind each other's work nor wait on
+    it at a readback."""
 
     def __init__(self, options: EncoderOptions, min_device_rows: int = 4096,
                  device="cuda") -> None:
@@ -543,6 +549,19 @@ class CudaChunkEncoder(NativeChunkEncoder):
                 f"(kpw_tpu_torch/native), which did not build: {native.errors}")
         super().__init__(options)
         self.min_device_rows = min_device_rows
+        self.stream = (torch.cuda.Stream(self.device)
+                       if self.device.type == "cuda" else None)
+
+    def _on_stream(self):
+        """The context that makes this encoder's stream current in the
+        calling thread (nothing on the CPU)."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
+    def encode(self, chunk: ColumnChunkData, base_offset: int, pre=None):
+        with self._on_stream():
+            return super().encode(chunk, base_offset, pre)
 
     # -- eligibility -------------------------------------------------------
     def _device_eligible(self, values, pt: int) -> bool:
@@ -563,7 +582,7 @@ class CudaChunkEncoder(NativeChunkEncoder):
         concurrent assemble_many of the PREVIOUS row group never sees this
         one's state."""
         slots: list = [None] * len(chunks)
-        with stage("encode.launch"):
+        with stage("encode.launch"), self._on_stream():
             launched = self._launch_all(chunks, slots)
         return PreparedRowGroup(slots, state=launched)
 
@@ -574,7 +593,7 @@ class CudaChunkEncoder(NativeChunkEncoder):
         launched = prepared.state
         prepared.state = None  # plans are consumed exactly once
         if launched is not None:
-            with stage("encode.bodies"):
+            with stage("encode.bodies"), self._on_stream():
                 self._assemble_bodies(chunks, prepared.pres, *launched)
         with stage("encode.assemble"):
             try:

@@ -26,8 +26,6 @@ from kpw_tpu.core.pages import CpuChunkEncoder as JaxCpuEncoder
 from kpw_tpu.native.encoder import NativeChunkEncoder as JaxNativeEncoder
 from kpw_tpu.ops import TpuChunkEncoder
 from kpw_tpu_torch import native
-from kpw_tpu_torch.core.bytecol import ByteColumn as PortBytes
-from kpw_tpu_torch.core.pages import ColumnChunkData as PortChunk
 from kpw_tpu_torch.core.pages import CpuChunkEncoder as PortCpuEncoder
 from kpw_tpu_torch.native.encoder import NativeChunkEncoder as PortNativeEncoder
 from kpw_tpu_torch.ops import backend
@@ -399,16 +397,6 @@ def test_small_chunks_take_the_superclass():
     assert encoder.launch_many(batch.chunks).state is None
 
 
-def _jax_to_port_batch(batch, pschema):
-    """A JAX-package ColumnBatch handed to the port as its level and value
-    arrays."""
-    return T.ColumnBatch([
-        PortChunk(col, chunk.values if isinstance(chunk.values, np.ndarray)
-                  else PortBytes(chunk.values.data, chunk.values.offsets),
-                  chunk.def_levels, chunk.rep_levels, chunk.num_rows)
-        for col, chunk in zip(pschema.columns, batch.chunks)], batch.num_rows)
-
-
 def _write_batches(core, schema, props, encoder, batches):
     buf = io.BytesIO()
     w = core.ParquetFileWriter(buf, schema, props, encoder=encoder)
@@ -421,8 +409,8 @@ def _write_batches(core, schema, props, encoder, batches):
 
 @pytest.mark.parametrize("codec", CODECS)
 def test_nested_list_struct_identity(codec):
-    """BASELINE config 5's shape: list<struct> rows shredded by the JAX
-    package's ProtoColumnarizer, handed to the port as level arrays; rep
+    """BASELINE config 5's shape: list<struct> rows shredded by each
+    package's own ProtoColumnarizer (the port's from the wire bytes); rep
     and def levels through the device level planner, two row groups."""
     from kpw_tpu.models import ProtoColumnarizer, proto_to_schema
     from proto_helpers import nested_message_classes
@@ -456,10 +444,15 @@ def test_nested_list_struct_identity(codec):
     tpu = _write_batches(J, jschema, jprops,
                          TpuChunkEncoder(jprops.encoder_options(), min_device_rows=1),
                          jbatches)
+    # the port's batches from its own columnarizer, off the wire bytes
+    from kpw_tpu_torch.models import ProtoColumnarizer as PortColumnarizer
+
+    shred = PortColumnarizer(Order, pschema)
+    pbatches = [shred.columnarize_payloads([m.SerializeToString() for m in msgs])
+                for msgs in groups]
     got = _write_batches(T, pschema, pprops,
                          CudaChunkEncoder(pprops.encoder_options(), min_device_rows=1,
-                                          device="cpu"),
-                         [_jax_to_port_batch(b, pschema) for b in jbatches])
+                                          device="cpu"), pbatches)
     assert got == want
     assert got == jnative
     assert got == tpu

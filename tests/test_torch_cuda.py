@@ -307,7 +307,7 @@ def test_writer_paths_card_equal_cpu_encoder(card, path):
 
     groups, schema, props = chip_smoke.SETUPS[path](small=True)
     before = (pack_pages.launches, delta_page_streams.launches)
-    calls, recorded = chip_smoke.writer_path(path, groups, schema, props)
+    calls, recorded, _ = chip_smoke.writer_path(path, groups, schema, props)
     assert calls["level_blob_replays"] == 0
     if path in ("encodings", "cfg3"):  # one launch per ring, two card files
         assert delta_page_streams.launches - before[1] == 2 * 2 * len(groups)
@@ -366,3 +366,49 @@ def test_string_planner_card_equals_cpu(card):
     assert {c.column.name for _, c, *_ in planner._items} == {"s", "o", "c"}
     assert [i for i, *_ in planner._rejected] == [2]
     assert planner.launches == len(planner._groups) > 0
+
+
+@pytest.mark.parametrize("threads", [1, 3])
+def test_streaming_builder_on_the_card(card, threads):
+    """The streaming writer with the ``"cuda"`` encoder on the card: a
+    4-partition topic of config 1's records drains to every offset
+    committed with ack-lag 0 through ``threads`` workers, each encoder on
+    a stream of its own; the pack kernel launches, and every published
+    file verifies with the footers' rows summing to the records.  The
+    deterministic arm's card files equal the ``"cpu"`` encoder's, file for
+    file."""
+    import os
+    import sys
+    import tempfile
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    from kpw_tpu_torch import FakeBroker
+    from kpw_tpu_torch.core import WriterProperties
+    from kpw_tpu_torch.ops.backend import CudaChunkEncoder
+    from kpw_tpu_torch.ops.bitpack import pack_pages
+
+    opts = WriterProperties().encoder_options()
+    a, b = CudaChunkEncoder(opts), CudaChunkEncoder(opts)
+    assert a.stream != b.stream and a.stream != torch.cuda.current_stream()
+    rows = 60_000
+    payloads = chip_smoke.replay_payloads(rows)
+    broker = FakeBroker()
+    broker.create_topic("e2e", 4)
+    broker.produce_many("e2e", payloads)
+    before = pack_pages.launches
+    with tempfile.TemporaryDirectory() as root:
+        target = os.path.join(root, "card")
+        w = chip_smoke.stream_builder(broker, "e2e", target, "cuda", threads,
+                                      "cuda", "card").build()
+        try:
+            chip_smoke.drain(w, broker, "e2e", "card", 4, rows, deadline_s=120)
+        finally:
+            w.close(deadline=60)
+        chip_smoke.published(target, rows, "card")
+        files = {be: chip_smoke.deterministic_files(payloads, be, "cuda", root,
+                                                    256 * 1024)
+                 for be in ("cuda", "cpu")}
+    assert pack_pages.launches > before
+    n = min(len(files["cuda"]), len(files["cpu"]))
+    assert n >= 2 and files["cuda"][:n] == files["cpu"][:n]

@@ -9,8 +9,13 @@
   the CPU (plain version) or CUDA (kernel);
 - work on CPU tensors launches no kernel: every launch counter stays 0;
 - the port's native host library builds only from its own sources
-  (``kpw_tpu_torch/native/src``) into ``kpw_tpu_torch/_build``, and
-  ``CudaChunkEncoder`` refuses to run without it.
+  (``kpw_tpu_torch/native/src``) into ``kpw_tpu_torch/_build``, its wire
+  shred extension under the port's own module name, and
+  ``CudaChunkEncoder`` refuses to run without it;
+- the smoke run's stream phase, rehearsed at 20,000 records on the CPU,
+  runs in an interpreter that refuses ``jax``, ``kpw_tpu`` and
+  ``google.protobuf`` alike: the streaming writer's wire path needs no
+  protobuf.
 """
 
 import io
@@ -34,10 +39,10 @@ from kpw_tpu_torch.parallel.sharded import encode_step_single
 # with the suite's other test workers.
 torch.set_num_threads(1)
 
-_IMPORT_PROBE = textwrap.dedent("""
+_REFUSE = textwrap.dedent("""
     import importlib, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "kpw_tpu")
+    BLOCKED = ("jax", "jaxlib", "kpw_tpu") + EXTRA
 
     def blocked(name):
         return any(name == b or name.startswith(b + ".") for b in BLOCKED)
@@ -51,7 +56,9 @@ _IMPORT_PROBE = textwrap.dedent("""
     for name in [m for m in sys.modules if blocked(m)]:
         del sys.modules[name]
     sys.meta_path.insert(0, Refuse())
+""")
 
+_IMPORT_PROBE = "EXTRA = ()\n" + _REFUSE + textwrap.dedent("""
     import kpw_tpu_torch
     names = ["kpw_tpu_torch"]
     for info in pkgutil.walk_packages(kpw_tpu_torch.__path__, "kpw_tpu_torch."):
@@ -78,8 +85,52 @@ def test_port_imports_without_jax_or_kpw_tpu():
                 "kpw_tpu_torch.parallel.sharded", "kpw_tpu_torch.entry",
                 "kpw_tpu_torch.core.writer", "kpw_tpu_torch.utils.tracing",
                 "kpw_tpu_torch.ops.strings", "kpw_tpu_torch.native",
-                "kpw_tpu_torch.native.build", "kpw_tpu_torch.native.encoder"):
+                "kpw_tpu_torch.native.build", "kpw_tpu_torch.native.encoder",
+                "kpw_tpu_torch.utils.lockcheck", "kpw_tpu_torch.utils.schedcheck",
+                "kpw_tpu_torch.models.proto_bridge", "kpw_tpu_torch.models.record_bridge",
+                "kpw_tpu_torch.ingest.broker", "kpw_tpu_torch.ingest.offsets",
+                "kpw_tpu_torch.ingest.autotune", "kpw_tpu_torch.ingest.consumer",
+                "kpw_tpu_torch.io.fs", "kpw_tpu_torch.io.verify",
+                "kpw_tpu_torch.runtime.retry", "kpw_tpu_torch.runtime.metrics",
+                "kpw_tpu_torch.runtime.export", "kpw_tpu_torch.runtime.telemetry",
+                "kpw_tpu_torch.runtime.watchdog", "kpw_tpu_torch.runtime.partition",
+                "kpw_tpu_torch.runtime.parquet_file", "kpw_tpu_torch.runtime.select",
+                "kpw_tpu_torch.runtime.writer", "kpw_tpu_torch.runtime.builder"):
         assert mod in names.split()
+
+
+_STREAM_PROBE = "EXTRA = ('google',)\n" + _REFUSE + textwrap.dedent("""
+    import torch
+    torch.set_num_threads(1)
+    sys.path.insert(0, ".")
+    import chip_smoke
+    from kpw_tpu_torch.ops.bitpack import pack_pages
+    from kpw_tpu_torch.ops.delta import delta_page_streams
+    from kpw_tpu_torch.ops.rank import hist_dict, rank_pages
+
+    counters = {"bitpack": pack_pages, "hist": hist_dict, "rank": rank_pages,
+                "delta": delta_page_streams}
+    launches = chip_smoke.phase_stream(torch, counters, small=True, device="cpu")
+    assert launches == dict.fromkeys(counters, 0), launches
+    leaked = sorted(m for m in sys.modules if blocked(m))
+    assert not leaked, leaked
+    print("stream ok")
+""")
+
+
+def test_stream_phase_runs_without_protobuf():
+    """The stream phase at its rehearsal size (20,000 records, every arm
+    and the deterministic arm, ``device="cpu"``) with ``jax``, ``kpw_tpu``
+    and ``google`` refused: records come from the smoke run's descriptor
+    stand-ins and wire encoder, and the writer shreds them from the wire."""
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _STREAM_PROBE], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    assert "stream ok" in out.stdout
+    assert "[stream deterministic]" in out.stdout
 
 
 def _no_cuda(monkeypatch):
@@ -119,8 +170,9 @@ def test_encoder_refuses_a_missing_native_build(monkeypatch, missing):
 
 def test_native_build_reads_only_the_ports_sources(monkeypatch, tmp_path):
     """Every g++ call of the port's native build compiles sources under
-    kpw_tpu_torch/native/src only (none of the JAX package's, no shredder)
-    and writes under the build directory it was given."""
+    kpw_tpu_torch/native/src only (none of the JAX package's) and writes
+    under the build directory it was given; the wire shred extension is
+    built and loaded under the port's own module name and ``PyInit``."""
     import os
 
     src_dir = os.path.join(os.path.dirname(T.__file__), os.pardir, "native", "src")
@@ -128,7 +180,17 @@ def test_native_build_reads_only_the_ports_sources(monkeypatch, tmp_path):
     assert native_build.SRC_DIR == src_dir
     assert native_build.BUILD_DIR == os.path.realpath(
         os.path.join(src_dir, os.pardir, os.pardir, "_build"))
-    assert sorted(os.listdir(src_dir)) == ["assemble.cc", "codecs.cc", "encode.cc"]
+    assert sorted(os.listdir(src_dir)) == [
+        "assemble.cc", "codecs.cc", "encode.cc", "pyshred.cc", "shred.cc",
+        "shred_nested.cc", "wire_common.h"]
+    assert native_build.PYSHRED_NAME == "_kpw_torch_pyshred"
+    with open(os.path.join(src_dir, "pyshred.cc")) as f:
+        src = f.read()
+    assert 'PyModuleDef_HEAD_INIT, "_kpw_torch_pyshred"' in src
+    assert "PyInit__kpw_torch_pyshred" in src and "PyInit__kpw_pyshred" not in src
+    shred = native.pyshred()  # the real build, before the g++ stand-in below
+    assert shred.__name__ == "_kpw_torch_pyshred"
+    assert shred.__file__ == native_build.PYSHRED_SO
     calls = []
 
     def fake_gcc(args, check, capture_output):
@@ -140,15 +202,18 @@ def test_native_build_reads_only_the_ports_sources(monkeypatch, tmp_path):
     monkeypatch.setattr(native_build, "_LOCK", str(tmp_path / "native.lock"))
     monkeypatch.setattr(native_build, "LIB_SO", str(tmp_path / "lib.so"))
     monkeypatch.setattr(native_build, "ASSEMBLE_SO", str(tmp_path / "asm.so"))
+    monkeypatch.setattr(native_build, "PYSHRED_SO", str(tmp_path / "shred.so"))
     monkeypatch.setattr(native_build.subprocess, "run", fake_gcc)
     native_build.build_lib()
     native_build.build_assemble()
-    assert len(calls) == 2
+    native_build.build_pyshred()
+    assert len(calls) == 3
     for args in calls:
         sources = [a for a in args if a.endswith((".cc", ".c", ".cpp", ".h"))]
         assert sources and all(os.path.dirname(a) == src_dir for a in sources)
-        assert "shred" not in " ".join(args)
         assert os.path.dirname(args[args.index("-o") + 1]) == str(tmp_path)
+    assert [os.path.basename(a) for a in calls[2] if a.endswith(".cc")] == [
+        "pyshred.cc", "shred.cc", "shred_nested.cc"]
 
 
 def test_wrappers_refuse_other_devices():

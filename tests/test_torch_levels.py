@@ -1,8 +1,9 @@
 """Port level encoding (kpw_tpu_torch.ops.levels, the run helpers of
 ops.packing and the pack kernel's run count), run here on the CPU with the
 plain versions: every output equal to the JAX package's function on the
-same numpy inputs, exactly.  Also pins the numpy Order shredder of
-``chip_smoke.py`` to the JAX package's ProtoColumnarizer."""
+same numpy inputs, exactly.  Also pins the Order shredding of
+``chip_smoke.py`` (the port's ProtoColumnarizer over its wire bytes) to
+the JAX package's ProtoColumnarizer."""
 
 import os
 import sys
@@ -179,13 +180,17 @@ def test_pack_pages_only_equals_jax():
 
 
 def test_chip_smoke_order_shredder_equals_proto_columnarizer():
-    """``chip_smoke.shred_orders`` builds config 5's columns with numpy from
-    per-order item counts; on the same rows the JAX ProtoColumnarizer gives
-    the same schema, values and rep/def levels."""
+    """The smoke run's ``nested`` path shreds config 5's orders with the
+    port's ``ProtoColumnarizer`` (its fused nested route) from the wire
+    bytes ``chip_smoke.order_payloads`` writes, through the descriptor
+    stand-in ``chip_smoke.order_class``; on the same orders the JAX
+    ProtoColumnarizer gives the same schema, values and rep/def levels."""
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import chip_smoke
     from kpw_tpu.models import ProtoColumnarizer, proto_to_schema
+    from kpw_tpu_torch.models import ProtoColumnarizer as PortColumnarizer
+    from kpw_tpu_torch.models import proto_to_schema as port_proto_to_schema
     from proto_helpers import nested_message_classes
 
     Order = nested_message_classes()
@@ -203,8 +208,10 @@ def test_chip_smoke_order_shredder_equals_proto_columnarizer():
         msgs.append(o)
     jschema = proto_to_schema(Order)
     want = ProtoColumnarizer(Order, jschema).columnarize(msgs)
-    pschema = chip_smoke.order_schema()
-    got = chip_smoke.shred_orders(pschema, order_id, n_items, sku, qty)
+    stand_in = chip_smoke.order_class()
+    pschema = port_proto_to_schema(stand_in)
+    got = PortColumnarizer(stand_in, pschema).columnarize_payloads(
+        chip_smoke.order_payloads(order_id, n_items, sku, qty))
 
     def fields(f):
         return (f.name, f.repetition, f.physical_type, f.converted_type,

@@ -39,6 +39,11 @@ def test_port_loads_its_own_build(libs):
     assert asm.__file__ == build.ASSEMBLE_SO
     assert asm.OP_KINDS == 5
     assert asm.HAS_ZSTD == int(port.has_zstd)
+    shred = native.pyshred()
+    assert shred is not None, native.errors
+    assert shred.__name__ == "_kpw_torch_pyshred"
+    assert shred.__file__ == build.PYSHRED_SO
+    assert jax_native.pyshred().__name__ == "_kpw_pyshred"
 
 
 def _corpus():
@@ -310,3 +315,84 @@ def test_snappy_without_libsnappy_equals_jax():
                          env=dict(os.environ, KPW_SNAPPY_LIB=""),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def _orders(n):
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from proto_helpers import nested_message_classes
+
+    Order = nested_message_classes()
+    rng = np.random.default_rng(21)
+    payloads = []
+    for i in range(n):
+        o = Order(order_id=int(rng.integers(0, 1 << 40)))
+        for _ in range(int(rng.integers(0, 4))):
+            it = o.items.add()
+            it.sku = f"sku{int(rng.integers(0, 9))}"
+            if rng.random() < 0.6:
+                it.qty = int(rng.integers(0, 99))
+            it.tags.extend(f"t{k}" for k in range(int(rng.integers(0, 3))))
+        if i % 3:
+            o.note = "n"
+        payloads.append(o.SerializeToString())
+    return Order, payloads
+
+
+def test_wire_shred_entries(libs):
+    """The ctypes wire-shred entries (flat ``proto_shred``, nested
+    ``proto_shred_nested`` with its ``NestedShredResult``, and
+    ``gather_spans``) of both libraries, on the plans each package's
+    columnarizer builds for the same messages."""
+    from kpw_tpu.models.proto_bridge import ProtoColumnarizer as JaxColumnarizer
+    from kpw_tpu_torch.models.proto_bridge import _K_SPAN, _K_SPAN_UTF8, ProtoColumnarizer
+
+    port, ref = libs
+    Order, payloads = _orders(400)
+    offs = np.concatenate([[0], np.cumsum([len(p) for p in payloads])]).astype(np.int64)
+    buf = b"".join(payloads)
+    got = []
+    for lib, cls in ((port, ProtoColumnarizer), (ref, JaxColumnarizer)):
+        col = cls(Order)
+        assert col.wire_capable
+        res = lib.proto_shred_nested(buf, offs, col._nested)
+        assert not isinstance(res, int)
+        try:
+            out = []
+            for li in range(len(col.schema.columns)):
+                defs, reps = res.levels(li)
+                if col._nested.leaf_kinds[li] in (_K_SPAN, _K_SPAN_UTF8):
+                    pos, ln = res.spans(li)
+                    out.append((defs.tolist(), reps.tolist(),
+                                lib.gather_spans(buf, pos, ln), ln.tolist()))
+                else:
+                    out.append((defs.tolist(), reps.tolist(),
+                                res.values(li, col._nested.leaf_dtypes[li]).tolist()))
+        finally:
+            res.close()
+        got.append(out)
+        # a truncated record: both report the same failing index
+        bad = list(payloads)
+        bad[123] = bad[123][:-1]
+        boffs = np.concatenate([[0], np.cumsum([len(p) for p in bad])]).astype(np.int64)
+        got[-1].append(lib.proto_shred_nested(b"".join(bad), boffs, col._nested))
+    assert got[0] == got[1]
+    assert got[0][-1] == 123
+    # flat: a fixed-width column and a span column through proto_shred
+    from proto_helpers import sample_message_class
+
+    cls = sample_message_class()
+    msgs = [cls(query=f"q{i}", timestamp=i * 7, page_number=i).SerializeToString()
+            for i in range(300)]
+    offs = np.concatenate([[0], np.cumsum([len(p) for p in msgs])]).astype(np.int64)
+    buf = b"".join(msgs)
+    flat = []
+    for lib, colcls in ((port, ProtoColumnarizer), (ref, JaxColumnarizer)):
+        plan = colcls(cls)._wire_plan()
+        outs = colcls(cls)._alloc_flat_outputs(plan, len(msgs))
+        rc = lib.proto_shred(buf, offs, len(plan.fnum), plan.fnum, plan.kinds,
+                             plan.flags, *outs)
+        flat.append((rc, [[None if a is None else a.tolist() for a in arrs]
+                          for arrs in outs]))
+    assert flat[0] == flat[1] and flat[0][0] == -1

@@ -1,10 +1,12 @@
-"""The smoke run's native phase, writer paths and string probe
-(``chip_smoke.py``), rehearsed here on the CPU at their small sizes with
-``device="cpu"``: every check the card run makes on a path holds here too
-(all four files byte-identical, every ``CudaChunkEncoder`` and
+"""The smoke run's native phase, writer paths, string probe and stream
+phase (``chip_smoke.py``), rehearsed here on the CPU at their small sizes
+with ``device="cpu"``: every check the card run makes on a path holds here
+too (all four files byte-identical, every ``CudaChunkEncoder`` and
 ``NativeChunkEncoder`` column chunk through the native assembler, no
 level page replayed in Python, the path's device routes called, its pack
-and delta jobs equal to their plain versions on its own inputs)."""
+and delta jobs equal to their plain versions on its own inputs; every
+stream arm drained with ack-lag 0 and its files verified, the
+deterministic arm's files byte-identical across encoders)."""
 
 import os
 import sys
@@ -27,7 +29,9 @@ def test_native_phase():
 @pytest.mark.parametrize("path", sorted(SETUPS))
 def test_writer_path(path):
     groups, schema, props = SETUPS[path](small=True)
-    calls, recorded = chip_smoke.writer_path(path, groups, schema, props, device="cpu")
+    calls, recorded, rates = chip_smoke.writer_path(path, groups, schema, props,
+                                                    device="cpu")
+    assert set(rates) == {key for key, _, _, _ in chip_smoke.WRITERS}
     if path == "strings":  # two card files, four string columns a row group
         assert calls["string_columns"] == 2 * 4 * len(groups)
         assert calls["string_pack_jobs"] >= 2 * len(groups)
@@ -44,3 +48,18 @@ def test_writer_path(path):
 def test_string_probe():
     inputs = {name: SETUPS[name](small=True) for name in ("strings", "encodings")}
     chip_smoke.string_probe(torch, inputs, device="cpu")
+
+
+def test_stream_phase():
+    """The stream phase at its rehearsal size (20,000 records) on the CPU:
+    every arm drains with ack-lag 0 and verified files, and the
+    deterministic arm's files are byte-identical across encoders; CPU
+    tensors launch no kernel."""
+    from kpw_tpu_torch.ops.bitpack import pack_pages
+    from kpw_tpu_torch.ops.delta import delta_page_streams
+    from kpw_tpu_torch.ops.rank import hist_dict, rank_pages
+
+    counters = {"bitpack": pack_pages, "hist": hist_dict, "rank": rank_pages,
+                "delta": delta_page_streams}
+    launches = chip_smoke.phase_stream(torch, counters, small=True, device="cpu")
+    assert launches == dict.fromkeys(counters, 0)
