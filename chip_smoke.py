@@ -65,15 +65,26 @@ Phases, in order; any failed check exits non-zero before the result lines:
    package's e2e probe: 400,000 records, serialized by this script (its
    descriptor stand-ins need no protobuf), on a 4-partition ``FakeBroker``
    topic.  Arms ``"cuda"`` with 1 and 4 worker threads, ``"native"`` with
-   1 and 4, and ``"auto"`` with 1: each must drain to every offset
-   committed with ack-lag 0, every published file must pass the port's
-   ``verify_file`` and the footers' rows sum to 400,000, and a card arm
-   must launch the pack kernel; each prints records/s to all written,
-   rows per row group and files; one card arm prints its stage spans and,
-   run again under the profiler, the card's busy share.  Then the
-   deterministic arm (one partition, one thread, autotune, time rotation
-   and the row-group pipeline off): its ``"cuda"``, ``"native"`` and
-   ``"cpu"`` files byte-identical, file for file;
+   1 and 4, and ``"auto"`` with 1, then ``"cuda"`` and ``"native"`` with 1
+   and 4 worker processes (spawned children, each with its own encoder;
+   at the reference's in-flight bound of 8 units and at 64): each must
+   drain to every offset committed with ack-lag 0, every published file
+   must pass the port's ``verify_file`` and the footers' rows sum to
+   400,000; a card arm with threads must launch the pack kernel, and every
+   child of a card arm with processes must ship the ``encode.launch``
+   spans of its ``CudaChunkEncoder`` (the parent's counters see no
+   child's launch); each prints records/s to all written, the start-up
+   to the first record written and records/s after it, the drain time,
+   rows per row group and files, beside ``os.cpu_count()`` and the CPU
+   affinity; one card arm prints its stage spans and, run again under the
+   profiler, the card's busy share.  Then the deterministic arm (one
+   partition, one thread, autotune, time rotation and the row-group
+   pipeline off) and its process twin (one process): each one's
+   ``"cuda"``, ``"native"`` and ``"cpu"`` files byte-identical, file for
+   file; then the routes arm: config 1's records and config 5's orders
+   through one ``MultiWriter`` (``Builder.route``), ``"cuda"`` on every
+   route, both drained with ack-lag 0, files verified, the pack kernel
+   launched;
 7. timing — the delta kernel at the shapes the ``encodings`` and ``cfg3``
    paths gave it, launched alone (CUDA events and the profiler's kernel
    time) and with its staging, beside its plain version and the time of a
@@ -91,7 +102,8 @@ Phases, in order; any failed check exits non-zero before the result lines:
 Phases 4, 5 and 6 are the main paths: every launch count is set to 0 just
 before each of them (each arm of phase 6) and read just after, and a kernel
 of the path that never launched fails the run; the ``launches`` reported
-are their sum.
+are their sum (a process arm's launches happen in its children and show
+as their spans, not in these counts).
 The taxi writer must make exactly one pack launch a job and no padded
 index copy; each other writer path must call its device routes (level
 statistics and run extraction, delta pages, the BYTE_STREAM_SPLIT
@@ -1665,23 +1677,44 @@ def group_breakdown(torch, name: str, batch, schema, props) -> None:
 # the stream phase: the streaming writer end to end
 # ---------------------------------------------------------------------------
 
-# the arms of the stream phase: (label, encoder backend, worker threads)
-STREAM_ARMS = (("cuda x1", "cuda", 1), ("cuda x4", "cuda", 4),
-               ("native x1", "native", 1), ("native x4", "native", 4),
-               ("auto x1", "auto", 1))
+# the arms of the stream phase: (label, encoder backend, worker threads,
+# worker processes, the processes' in-flight bound in units); an arm with
+# processes runs no worker thread.  The "i64" arms raise the bound from
+# the reference's 8 units: a child settles units only when their file
+# publishes, and with 4 partitions a unit is a quarter of a poll, so 8
+# units hold less than a 4 MiB file and files end by time rotation.
+STREAM_ARMS = (("cuda x1", "cuda", 1, 0, 8), ("cuda x4", "cuda", 4, 0, 8),
+               ("native x1", "native", 1, 0, 8), ("native x4", "native", 4, 0, 8),
+               ("auto x1", "auto", 1, 0, 8),
+               ("cuda p1", "cuda", 1, 1, 8), ("cuda p4", "cuda", 1, 4, 8),
+               ("native p1", "native", 1, 1, 8), ("native p4", "native", 1, 4, 8),
+               ("cuda p1 i64", "cuda", 1, 1, 64), ("cuda p4 i64", "cuda", 1, 4, 64),
+               ("native p1 i64", "native", 1, 1, 64),
+               ("native p4 i64", "native", 1, 4, 64))
+DET_SLOT_BYTES = 8192  # the deterministic process arm's ring slots
 
 
 def stream_builder(broker, topic: str, target: str, backend: str, threads: int,
                    device: str, name: str, deterministic: bool = False,
-                   file_size: int = 4 * 1024 * 1024):
+                   file_size: int = 4 * 1024 * 1024, procs: int = 0, rows: int = 0,
+                   inflight: int = 8):
     """The e2e probe's Builder (bench.py:3952-3960) over a LocalFileSystem:
     SNAPPY, autotune, batch ingest, 4 MiB files (``file_size``) of row
-    groups half that size, files time-rotated after 0.5 s.
+    groups half that size, files time-rotated after 0.5 s; ``procs``
+    worker processes in place of the threads when set, each with at most
+    ``inflight`` units dispatched and not yet acked.
     ``deterministic``: autotune, time rotation and the row-group pipeline
     off, and polls of 64 records from fetches of 2,048, so that the run's
     files depend on its records alone: each append then holds 64 records
     (while the fetcher stays ahead), and the size checks that rotate files
-    and cut row groups see every flushed row group's final size."""
+    and cut row groups see every flushed row group's final size.  With
+    processes the unit a child appends is cut by the dispatcher from polls
+    of 256 records: ring slots of 8 KiB and a consumer queue that holds
+    all ``rows`` (so no fetch of 2,048 is admitted in slices, and no poll
+    straddles two fetches) make every unit depend on the records alone;
+    a child settles its units only when the file that holds them
+    publishes, so with time rotation off the in-flight bound must cover a
+    whole file of units."""
     from kpw_tpu_torch import Builder, LocalFileSystem
 
     b = (Builder().broker(broker).topic(topic).proto_class(replay_class())
@@ -1693,6 +1726,11 @@ def stream_builder(broker, topic: str, target: str, backend: str, threads: int,
          .max_file_open_duration_seconds(3600.0 if deterministic else 0.5))
     if deterministic:
         b.pipeline(False).batch_size(64).fetch_max_records(2048)
+    if procs and deterministic:
+        b.process_workers(procs, slot_bytes=DET_SLOT_BYTES, max_inflight_units=1 << 20)
+        b.max_queued_records_in_consumer(max(rows, 100_000))
+    elif procs:
+        b.process_workers(procs, max_inflight_units=inflight)
     return b
 
 
@@ -1700,18 +1738,22 @@ def drain(w, broker, topic: str, group: str, parts: int, rows: int,
           deadline_s: float = 300.0) -> tuple:
     """Start ``w`` and wait until every record is written and then until
     every offset is committed with ack-lag 0 (bench.py:3965-3990): (seconds
-    to all written, seconds to drained).  Fails at the deadline."""
+    to the first record written, to all written, to drained).  The first
+    is the start-up a worker process pays (interpreter, imports, a CUDA
+    context) before it writes.  Fails at the deadline."""
     t0 = time.perf_counter()
     w.start()
     deadline = t0 + deadline_s
-    t_written = None
+    t_first = t_written = None
     while time.perf_counter() < deadline:
+        if t_first is None and w.total_written_records > 0:
+            t_first = time.perf_counter() - t0
         if t_written is None and w.total_written_records >= rows:
             t_written = time.perf_counter() - t0
         if (t_written is not None
                 and sum(broker.committed(group, topic, p) for p in range(parts)) >= rows
                 and w.ack_lag()["unacked_records"] == 0):
-            return t_written, time.perf_counter() - t0
+            return t_first, t_written, time.perf_counter() - t0
         time.sleep(0.002)
     fail(f"stream {group}: not drained within {deadline_s:.0f} s: written "
          f"{w.total_written_records} of {rows}, committed "
@@ -1747,50 +1789,69 @@ def span_sums(recorder) -> dict:
     return {k: sums[k] for k in STAGE_NAMES if k in sums}
 
 
+def child_spans(w, name: str) -> dict:
+    """Spans named ``name`` that a process-worker writer's children
+    shipped to it (the process pool's telemetry channel: each child drains
+    its span ring over the ack queue at file boundaries and at exit),
+    counted by child pid; none of the parent's own."""
+    out: dict = {}
+    for e in w.trace_merger.to_chrome_trace()["traceEvents"]:
+        if e.get("ph") == "X" and e["name"] == name and e["pid"] != os.getpid():
+            out[e["pid"]] = out.get(e["pid"], 0) + 1
+    return out
+
+
 def stream_arm(broker, topic: str, parts: int, rows: int, backend: str,
                threads: int, device: str, root: str, name: str,
-               tracing: bool = False) -> dict:
+               tracing: bool = False, procs: int = 0, inflight: int = 8) -> dict:
     """One arm: drain the primed topic through a fresh writer and consumer
     group, close it, verify its files.  Returns records/s (to all written),
     the drain time, the files, the rows per row group and, with
-    ``tracing``, the SpanRecorder's spans summed by stage."""
+    ``tracing``, the SpanRecorder's spans summed by stage; with ``procs``
+    and ``tracing``, the ``encode.launch`` spans (recorded only by
+    ``CudaChunkEncoder`` around its launches) that each child shipped."""
     target = os.path.join(root, name)
-    b = stream_builder(broker, topic, target, backend, threads, device, name)
+    b = stream_builder(broker, topic, target, backend, threads, device, name,
+                       procs=procs, inflight=inflight)
     if tracing:
         b.tracing(True)
     w = b.build()
     try:
-        t_written, t_drained = drain(w, broker, topic, name, parts, rows)
-        spans = span_sums(w.span_recorder) if tracing else {}
+        t_first, t_written, t_drained = drain(w, broker, topic, name, parts, rows)
+        spans = span_sums(w.span_recorder) if tracing and not procs else {}
     finally:
         w.close()
+    launch_spans = child_spans(w, "encode.launch") if tracing and procs else {}
     reports = published(target, rows, name)
     groups = sum(r.row_groups for r in reports)
+    # steady: after the first record was written, once the workers are up
     return {"rows_s": rows / t_written, "written_s": t_written,
+            "first_s": t_first, "steady_rows_s": rows / max(t_written - t_first, 1e-9),
             "drained_s": t_drained, "files": len(reports),
             "rows_per_group": rows / groups, "spans": spans,
-            "choice": w.encoder_choice}
+            "choice": w.encoder_choice, "child_launch_spans": launch_spans}
 
 
 def deterministic_files(payloads: list, backend: str, device: str, root: str,
-                        file_size: int) -> list:
-    """The deterministic arm: one partition, one worker thread, autotune
-    and time rotation off, ``close()`` after every record is written.  The
-    files rotated by size are published and acked; ``close()`` abandons
-    the open one, unacked, as the reference does (KPW.java:381-398).  The
-    rotation that the last append may trigger races ``close()``, so the
-    last file may or may not be published.  Returns the published files'
-    bytes in publish order."""
+                        file_size: int, procs: int = 0) -> list:
+    """The deterministic arm: one partition, one worker thread (or with
+    ``procs``, one worker process), autotune and time rotation off,
+    ``close()`` after every record is written.  The files rotated by size
+    are published and acked; ``close()`` abandons the open one, unacked,
+    as the reference does (KPW.java:381-398).  The rotation that the last
+    append may trigger races ``close()``, so the last file may or may not
+    be published.  Returns the published files' bytes in publish order."""
     from kpw_tpu_torch import FakeBroker
 
     rows = len(payloads)
     broker = FakeBroker()
     broker.create_topic("det", 1)
     broker.produce_many("det", payloads)
-    name = f"det-{backend}"
+    name = f"det-{'p' if procs else ''}{backend}"
     target = os.path.join(root, name)
     w = stream_builder(broker, "det", target, backend, 1, device, name,
-                       deterministic=True, file_size=file_size).build()
+                       deterministic=True, file_size=file_size, procs=procs,
+                       rows=rows).build()
     try:
         w.start()
         deadline = time.perf_counter() + 300.0
@@ -1810,18 +1871,84 @@ def deterministic_files(payloads: list, backend: str, device: str, root: str,
     return out
 
 
+def routes_arm(counters: dict, payloads: list, device: str, root: str,
+               small: bool) -> dict:
+    """Two tenants through one ``MultiWriter`` (``Builder.route``) on one
+    FakeBroker session, every route's writer on the ``"cuda"`` encoder:
+    config 1's ``Replay`` records (the stream's) and config 5's ``Order``
+    records (32,768; small: 4,096), each topic of 4 partitions, each route
+    into its own tree.  Both must drain to every offset committed with
+    ack-lag 0, their files verify and the footers sum to the records; the
+    routes' workers are threads, so the parent's counters see the pack
+    kernel launch.  Returns the launches by kernel and what each route
+    did."""
+    from kpw_tpu_torch import Builder, FakeBroker, LocalFileSystem
+
+    orders = order_payloads(*order_rows(np.random.default_rng(5),
+                                        4_096 if small else NESTED_ROWS))
+    topics = {"replay": (replay_class(), payloads), "orders": (order_class(), orders)}
+    broker = FakeBroker()
+    b = (Builder().broker(broker).filesystem(LocalFileSystem())
+         .instance_name("routes").group_id("routes")
+         .encoder_backend("cuda", device=device)
+         .compression("snappy").batch_ingest(True)
+         .max_file_size(4 * 1024 * 1024).block_size(2 * 1024 * 1024)
+         .max_file_open_duration_seconds(0.5))
+    for topic, (cls, records) in topics.items():
+        broker.create_topic(topic, 4)
+        broker.produce_many(topic, records)
+        b.route(topic, cls, os.path.join(root, "routes", topic))
+    for f in counters.values():
+        f.launches = 0
+    mw = b.build()
+    check(type(mw).__name__ == "MultiWriter", "routes: build() made no MultiWriter")
+    t0 = time.perf_counter()
+    mw.start()
+    try:
+        deadline = t0 + 300.0
+        while time.perf_counter() < deadline and not (
+                all(sum(broker.committed("routes", t, p) for p in range(4))
+                    >= len(r) for t, (_, r) in topics.items())
+                and mw.ack_lag()["unacked_records"] == 0):
+            time.sleep(0.002)
+        t_drained = time.perf_counter() - t0
+        tenants = mw.stats()["tenants"]
+    finally:
+        mw.close()
+    got = {k: f.launches for k, f in counters.items()}
+    out = {}
+    for topic, (_, records) in topics.items():
+        committed = sum(broker.committed("routes", topic, p) for p in range(4))
+        check(committed == len(records) and tenants[topic]["ack"]["unacked_records"] == 0,
+              f"routes {topic}: committed {committed} of {len(records)}, "
+              f"tenant {tenants[topic]}")
+        reports = published(os.path.join(root, "routes", topic), len(records),
+                            f"routes {topic}")
+        out[topic] = (len(records), len(reports), tenants[topic]["state"])
+    if device == "cuda":
+        check(got["bitpack"] > 0, f"routes: the pack kernel never launched: {got}")
+    say(f"[stream routes] 2 routes, one session, cuda on every route: drained in "
+        f"{t_drained:.3f} s, ack lag 0; (records, files verified, state) "
+        + ", ".join(f"{t} {v}" for t, v in out.items()) + f"; launches {got}")
+    return got
+
+
 def phase_stream(torch, counters: dict, small: bool = False, device: str = "cuda") -> dict:
     """The streaming writer through the port's public API: ``Builder`` →
     ``start()`` → poll → wire shred → append → row groups encoded →
     size/time rotation → durable tmp→final publish → offset ack →
     ``close()``, on BASELINE config 1's records in the shape of the e2e
-    probe (bench.py:3769-3990): 400,000 records (small: 20,000) on a
-    FakeBroker topic of 4 partitions primed before ``start()``.  Each arm
-    of :data:`STREAM_ARMS` must drain to every offset committed with
+    probe (bench.py:3769-3990): 400,000 records (small: 20,000, without
+    the in-flight-64 arms) on a FakeBroker topic of 4 partitions primed
+    before ``start()``.  Each arm of :data:`STREAM_ARMS` must drain to every offset committed with
     ack-lag 0, every published file must verify and their footers' rows
-    sum to the records; a card arm must launch the pack kernel.  Then the
-    deterministic arm's files from the ``"cuda"``, ``"native"`` and
-    ``"cpu"`` encoders must be byte-identical, file for file.  Returns the
+    sum to the records; a card arm with threads must launch the pack
+    kernel, and each child of a card arm with processes must ship the
+    ``encode.launch`` spans of its CudaChunkEncoder (the parent's counters
+    see no child's launch).  Then the deterministic arm's files from the
+    ``"cuda"``, ``"native"`` and ``"cpu"`` encoders must be
+    byte-identical, file for file, with one thread and with one process;
+    and the routes arm (:func:`routes_arm`) must drain.  Returns the
     launches of the arms by kernel."""
     import tempfile
 
@@ -1835,27 +1962,42 @@ def phase_stream(torch, counters: dict, small: bool = False, device: str = "cuda
     broker.create_topic("e2e", parts)
     broker.produce_many("e2e", payloads)
     say(f"[stream] {rows} records, {sum(map(len, payloads))} bytes on the wire, "
-        f"{parts} partitions, primed in {time.perf_counter() - t0:.2f} s")
+        f"{parts} partitions, primed in {time.perf_counter() - t0:.2f} s; host "
+        f"os.cpu_count() {os.cpu_count()}, this process's CPU affinity "
+        f"{len(os.sched_getaffinity(0))} CPUs {sorted(os.sched_getaffinity(0))}")
     launches = dict.fromkeys(counters, 0)
     results = {}
     with tempfile.TemporaryDirectory(prefix="kpw_stream_") as root:
-        for label, backend, threads in STREAM_ARMS:
+        for label, backend, threads, procs, inflight in STREAM_ARMS:
+            if small and inflight != 8:
+                continue  # the rehearsal: the same path as the bound-8 arm
             for f in counters.values():
                 f.launches = 0
             name = label.replace(" ", "")
             r = stream_arm(broker, "e2e", parts, rows, backend, threads, device, root,
-                           name, tracing=(label == "cuda x1"))
+                           name, tracing=(label == "cuda x1"
+                                          or (procs > 0 and backend == "cuda")),
+                           procs=procs, inflight=inflight)
             got = {k: f.launches for k, f in counters.items()}
-            if backend == "cuda" and device == "cuda":
+            if backend == "cuda" and device == "cuda" and not procs:
                 check(got["bitpack"] > 0, f"stream {label}: the pack kernel never "
                       f"launched: {got}")
+            if backend == "cuda" and procs:
+                spans = r["child_launch_spans"]
+                check(len(spans) == procs and all(n > 0 for n in spans.values()),
+                      f"stream {label}: not every child shipped encode.launch "
+                      f"spans: {spans}")
             launches = {k: launches[k] + got[k] for k in counters}
             results[label] = r
+            extra = (f"; children's encode.launch spans by pid {r['child_launch_spans']}"
+                     if r["child_launch_spans"] else "")
             say(f"[stream {label}] {r['rows_s']:.0f} records/s to all written "
-                f"({r['written_s']:.3f} s; drained, committed {rows} with ack lag 0, "
+                f"({r['written_s']:.3f} s; first written at {r['first_s']:.3f} s, "
+                f"{r['steady_rows_s']:.0f} records/s after it; drained, committed "
+                f"{rows} with ack lag 0, "
                 f"in {r['drained_s']:.3f} s); {r['files']} files verified, footers "
                 f"{rows} rows, {r['rows_per_group']:.0f} rows per row group; "
-                f"launches {got}")
+                f"parent's launches {got}{extra}")
         spans = results["cuda x1"]["spans"]
         check(all(k in spans for k in ("consumer.fetch", "worker.shred",
                                        "rowgroup.io_write")),
@@ -1873,6 +2015,20 @@ def phase_stream(torch, counters: dict, small: bool = False, device: str = "cuda
                 f"{choice.rows_per_s['native']:.0f} rows/s); arms cuda {card:.0f} / "
                 f"native {host:.0f} records/s: "
                 f"{'cuda' if card > host else 'native'} faster here")
+        for backend in ("cuda", "native"):
+            for key, what in (("rows_s", "records/s to all written"),
+                              ("steady_rows_s", "records/s after the first written"),
+                              ("drained_s", "seconds to drained")):
+                r = {k[len(backend) + 1:]: v[key] for k, v in results.items()
+                     if k.startswith(backend + " ")}
+                ratios = [f"{a}/{b} {r[a] / r[b]:.2f}"
+                          for tag in ("", " i64") if f"p1{tag}" in r
+                          for a, b in ((f"p4{tag}", f"p1{tag}"), (f"p1{tag}", "x1"),
+                                       (f"p4{tag}", "x4"))]
+                say(f"[stream {backend}] {what}: "
+                    + ", ".join(f"{k} {v:.3f}" for k, v in r.items())
+                    + "; " + ", ".join(ratios) + f" (os.cpu_count() {os.cpu_count()}, "
+                    f"affinity {len(os.sched_getaffinity(0))})")
         if device == "cuda":
             def profiled():
                 stream_arm(broker, "e2e", parts, rows, "cuda", 1, device, root,
@@ -1880,19 +2036,28 @@ def phase_stream(torch, counters: dict, small: bool = False, device: str = "cuda
             say("[stream cuda x1] profiled run: " + device_profile(torch, profiled))
         # small: files of 256 KiB, so that the rehearsal publishes several
         size = (256 if small else 4 * 1024) * 1024
-        files = {backend: deterministic_files(payloads, backend, device, root, size)
-                 for backend in ("cuda", "native", "cpu")}
-    # file for file over the files every encoder published: only the last
-    # size rotation, which races close(), may be missing from some
-    common = min(map(len, files.values()))
-    sizes = {k: [len(b) for b in v] for k, v in files.items()}
-    check(common >= 2 and max(map(len, files.values())) - common <= 1
-          and files["cuda"][:common] == files["native"][:common] == files["cpu"][:common],
-          f"stream: the deterministic arm's files differ between encoders: {sizes}")
-    say(f"[stream deterministic] 1 partition, 1 thread, autotune and time rotation "
-        f"off, no row-group pipeline, polls of 64, closed after all written: cuda, "
-        f"native and cpu files byte-identical, "
-        f"file for file ({common} files published by size by all three; bytes {sizes})")
+        for procs in (0, 1):
+            files = {backend: deterministic_files(payloads, backend, device, root,
+                                                  size, procs=procs)
+                     for backend in ("cuda", "native", "cpu")}
+            # file for file over the files every encoder published: only the
+            # last size rotation, which races close(), may be missing
+            common = min(map(len, files.values()))
+            sizes = {k: [len(b) for b in v] for k, v in files.items()}
+            how = "1 process" if procs else "1 thread"
+            check(common >= 2 and max(map(len, files.values())) - common <= 1
+                  and files["cuda"][:common] == files["native"][:common]
+                  == files["cpu"][:common],
+                  f"stream: the deterministic arm's files ({how}) differ between "
+                  f"encoders: {sizes}")
+            say(f"[stream deterministic] 1 partition, {how}, autotune and time "
+                f"rotation off, no row-group pipeline, polls of 64"
+                + (f", ring slots of {DET_SLOT_BYTES} B" if procs else "")
+                + ", closed after all written: cuda, native and cpu files "
+                f"byte-identical, file for file ({common} files published by size "
+                f"by all three; bytes {sizes})")
+        got = routes_arm(counters, payloads, device, root, small)
+        launches = {k: launches[k] + got[k] for k in counters}
     return launches
 
 

@@ -24,6 +24,7 @@ ops run on the device of the tensors they are given (see ``device.py``).
 
 __version__ = "0.1.0"
 
-from .runtime import Builder  # noqa: E402,F401
+from .runtime import Builder, MultiWriter  # noqa: E402,F401
+from .io.compact import Compactor  # noqa: E402,F401
 from .ingest import FakeBroker  # noqa: E402,F401
 from .io import LocalFileSystem, MemoryFileSystem  # noqa: E402,F401

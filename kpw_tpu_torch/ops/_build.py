@@ -7,13 +7,17 @@ which the op modules load with ctypes.  Libraries land in
 the flags, so an edited source rebuilds and a stale library is never
 loaded.  The build runs at first use — the first launch of a kernel on a
 CUDA tensor — or up front through :func:`build`, which starts one ``nvcc``
-per source, all at once.  Nothing here runs at import time: a machine
-without the CUDA toolkit can import every module.
+per source, all at once.  Builds hold an ``fcntl.flock`` on
+``_build/cuda.lock``, so that processes sharing the checkout (process
+workers, parallel test workers) compile each source once: the others wait
+and then load the finished library.  Nothing here runs at import time: a
+machine without the CUDA toolkit can import every module.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -52,11 +56,21 @@ def library_path(name: str) -> str:
 
 
 def _build_locked(names) -> dict[str, float]:
-    todo = [n for n in names if not os.path.exists(library_path(n))]
+    """Build ``names`` under the thread lock (held by the caller) and the
+    cross-process file lock: a process that waited finds the libraries
+    built and compiles nothing, so no two builds write one log."""
+    if all(os.path.exists(library_path(n)) for n in names):
+        return {}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "cuda.lock"), "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        return _compile([n for n in names if not os.path.exists(library_path(n))])
+
+
+def _compile(todo) -> dict[str, float]:
     if not todo:
         return {}
     nvcc = nvcc_path()
-    os.makedirs(BUILD_DIR, exist_ok=True)
     running = []
     for name in todo:
         so = library_path(name)

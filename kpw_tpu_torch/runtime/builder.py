@@ -8,11 +8,12 @@ SURVEY.md §5: `max_file_size=0` is rejected loudly (the reference's javadoc
 falsely promises "no limit"), and the parquet page size defaults to 1 MiB
 rather than inheriting the 128 MiB block size (a reference quirk).
 
-The port runs the thread-worker writer over a ``LocalFileSystem`` or
-``MemoryFileSystem`` sink.  Options whose modules are not ported yet
-(process workers, compaction, object stores, multi-tenant routes, the
-Kafka client, HDFS) are accepted by their setters and raise
-``NotImplementedError`` at ``build()``, naming the module.
+The port runs thread or process workers, compaction and multi-tenant
+routes over a ``LocalFileSystem`` or ``MemoryFileSystem`` sink.  Options
+whose modules are not ported yet (object stores and compaction's
+bandwidth and request budgets, the Kafka client, HDFS) are accepted by
+their setters and raise ``NotImplementedError`` at ``build()``, naming the
+module.
 """
 
 from __future__ import annotations
@@ -833,11 +834,16 @@ class Builder:
 
         ``max_inflight_units`` bounds un-acked dispatched units per child
         (bounds redelivery work after a kill).  Constraints (validated at
-        ``build()``): spawn start method only (fork with live jax threads
-        deadlocks), a ``LocalFileSystem`` sink, a protobuf message class
-        (children rebuild it from its descriptor), no ``partition_by``,
-        and a cpu/native/auto encoder backend.  ``n=0`` restores thread
-        workers."""
+        ``build()``): spawn start method only (fork with live CUDA and
+        encoder threads is unsafe), a ``LocalFileSystem`` sink, a message
+        class with a descriptor (children rebuild it: a protobuf class
+        from its ``FileDescriptorProto`` closure, a descriptor stand-in
+        from a plain-data snapshot, without protobuf), no
+        ``partition_by``, and a cpu/native/auto/cuda encoder backend.
+        With ``"cuda"`` each child runs its own ``CudaChunkEncoder`` on
+        the builder's device, on a CUDA stream of its own; the JAX
+        package's children reach the card only through ``"auto"``.
+        ``n=0`` restores thread workers."""
         if n < 0:
             raise ValueError("process_workers must be >= 0")
         if ring_slots < 2:
@@ -938,18 +944,26 @@ class Builder:
         return LocalFileSystem()
 
     def build(self):
+        compaction = self._compaction or {}
         for unported, module in (
                 (self._broker is None and self._consumer_config is not None,
                  "a consumer_config without a broker needs "
                  "ingest/kafka_client.py"),
-                (self._routes, "route() needs runtime/multiwriter.py"),
                 (self._object_store, "object_store() needs io/objectstore.py"),
-                (self._compaction, "compaction() needs io/compact.py"),
-                (self._proc_workers, "process_workers() needs "
-                 "runtime/procworkers.py")):
+                (compaction.get("bandwidth_bytes_per_s") is not None
+                 or compaction.get("request_budget_per_round") is not None,
+                 "compaction()'s bandwidth_bytes_per_s and "
+                 "request_budget_per_round need io/objectstore.py")):
             if unported:
                 raise NotImplementedError(
                     f"{module}, which the port has not ported yet")
+        if self._routes:
+            # multi-tenant mode: the MultiWriter clones this builder per
+            # route (topic/proto/target applied there) and shares the
+            # broker session, encoder pool and compaction service
+            from .multiwriter import MultiWriter
+
+            return MultiWriter(self)
         if self._filesystem is None and self._filesystem_config is not None:
             self._filesystem = self._filesystem_from_config()
         # required fields (reference :729-733)
@@ -1047,6 +1061,42 @@ class Builder:
             self._group_id = f"KafkaProtoParquetWriter-{self._instance_name}"
         if self._filesystem is None:
             self._filesystem = LocalFileSystem()
+        if self._proc_workers:
+            # process mode crosses an interpreter boundary: everything a
+            # child needs must be reconstructible from picklable config.
+            # Fail here, at build(), not inside a spawned child.
+            if type(self._filesystem) is not LocalFileSystem:
+                raise ValueError(
+                    "process_workers requires a plain LocalFileSystem sink "
+                    "(children open their own file handles; in-memory and "
+                    "composite filesystems do not cross a process boundary)")
+            if self._partitioner is not None:
+                raise ValueError(
+                    "process_workers does not support partition_by yet "
+                    "(routing needs the parsed message in the parent)")
+            # "cuda" is accepted: an H100 gives every process a context of
+            # its own, so each child runs its own CudaChunkEncoder.  The
+            # JAX package refuses its card backend here, most likely
+            # because a TPU host's chips open in one process at a time;
+            # there a child reaches the device only through "auto".
+            if self._backend not in (None, "cpu", "native", "auto", "cuda"):
+                raise ValueError(
+                    f"process_workers supports cpu/native/auto/cuda encoder "
+                    f"backends, not {self._backend!r}")
+            if not self._parser_is_default:
+                raise ValueError(
+                    "process_workers does not support a custom parser(): "
+                    "spawned children decode payloads with the wire "
+                    "shredder / proto_class.FromString, so a transforming "
+                    "parser would be silently ignored")
+            from .procworkers import _proto_spec
+
+            _proto_spec(self._proto_class)  # raises if not descriptor-backed
+            # a coordinated broker (session_timeout_s set) is SUPPORTED in
+            # process mode: the parent owns the group membership and
+            # heartbeat (children never talk to the broker) and forwards
+            # revocations across the ring as `revoke` fence descriptors —
+            # see runtime/procworkers.py.
         from .writer import KafkaProtoParquetWriter
 
         return KafkaProtoParquetWriter(self)

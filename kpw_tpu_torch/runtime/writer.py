@@ -29,6 +29,7 @@ from datetime import datetime
 
 from ..core.select_encoding import encoding_name
 from ..core.writer import PipelineError
+from ..io.compact import Compactor
 from ..io.fs import publish_file
 from ..io.verify import verify_dir, verify_file
 from ..ingest.autotune import IngestAutotuner
@@ -42,6 +43,7 @@ from . import metrics as M
 from .export import registry_to_json
 from .parquet_file import ParquetFile
 from .partition import normalize_partition_path
+from .procworkers import ProcessWorkerPool
 from .retry import RetryInterrupted, RetryPolicy
 from .telemetry import ChildTelemetry, FlightRecorder
 from .watchdog import Heartbeat, Watchdog
@@ -246,7 +248,7 @@ class KafkaProtoParquetWriter:
         # the shared-memory ring + dispatcher/collector threads; its
         # slots ARE self._workers, so supervision/watchdog/stats operate
         # on process slots through the same surface as threads
-        self._procpool = None
+        self._procpool: ProcessWorkerPool | None = None
         # supervision state: restart counts per worker index (kept across
         # replacements), the death-notice the supervisor sleeps on, and the
         # terminal verdict once every restart budget is exhausted
@@ -350,7 +352,7 @@ class KafkaProtoParquetWriter:
                              if reg else M.Histogram())
         self._ack_latency_route = M.Histogram()
         self.consumer.set_latency_observer(self._observe_ack_latency)
-        self._compactor = None
+        self._compactor: Compactor | None = None
         self._paused: dict[int, dict] = {}
         self._pause_lock = threading.Lock()
         self._pause_count = 0
@@ -432,14 +434,6 @@ class KafkaProtoParquetWriter:
     def start(self) -> None:
         if self._started:
             raise ValueError("already started")
-        if self._b._proc_workers:
-            raise NotImplementedError(
-                "process workers need runtime/procworkers.py, which the "
-                "port has not ported yet")
-        if self._b._compaction:
-            raise NotImplementedError(
-                "compaction needs io/compact.py, which the port has not "
-                "ported yet")
         self._started = True
         logger.info("Starting parquet writer '%s'", self._b._instance_name)
         if self._b._tracing:
@@ -456,10 +450,57 @@ class KafkaProtoParquetWriter:
         if self._b._verify_on_startup:
             self._verify_published()
         self.consumer.start()
-        for i in range(self._b._thread_count):
-            w = _Worker(self, i)
-            self._workers.append(w)
-            w.start()
+        if self._b._proc_workers:
+            self._procpool = ProcessWorkerPool(self)
+            self._workers = self._procpool.slots
+            self._procpool.start()
+            pool = self._procpool
+            # merged child-counter view over the pool's shm TM cells:
+            # every slot index stays a readable cell (dead-but-unbanked
+            # cells keep counting until respawn/finalize banks them, so
+            # the merged totals are monotonic across child restarts)
+            self._child_telemetry = ChildTelemetry(
+                pool.ring, lambda: range(len(pool.slots)))
+            if self.span_recorder is not None:
+                # multi-pid timeline: children drain their span rings over
+                # the ack channel; the merger aligns them on epoch_wall
+                self.trace_merger = tracing.MultiProcessTrace(
+                    self.span_recorder)
+            reg = self._b._metric_registry
+            if reg:
+                reg.gauge(M.PROC_RING_SLOTS_GAUGE, lambda: pool.ring.slots)
+                reg.gauge(M.PROC_RING_FREE_GAUGE, pool.ring_free)
+                reg.gauge(M.PROC_INFLIGHT_GAUGE,
+                          lambda: sum(s.inflight_units()
+                                      for s in pool.slots))
+                reg.gauge(M.PROC_RSS_GAUGE,
+                          lambda: sum(s.rss_bytes() for s in pool.slots))
+                reg.gauge(M.PROC_ALIVE_GAUGE,
+                          lambda: sum(1 for s in pool.slots if s.alive()))
+                # child-origin counters, merged banked+live at scrape
+                # time: one parent-side registry_to_prometheus() /
+                # registry_to_json() call covers the whole process tree
+                ct = self._child_telemetry
+                reg.gauge(M.CHILD_WRITTEN_RECORDS_GAUGE,
+                          lambda: ct.field("written_records"))
+                reg.gauge(M.CHILD_FLUSHED_RECORDS_GAUGE,
+                          lambda: ct.field("flushed_records"))
+                reg.gauge(M.CHILD_STAGE_SECONDS_GAUGE,
+                          lambda: ct.field("stage_time_us") / 1e6)
+                reg.gauge(M.CHILD_SPANS_GAUGE,
+                          lambda: ct.field("spans_recorded"))
+                reg.gauge(M.CHILD_SPANS_DROPPED_GAUGE,
+                          lambda: ct.field("spans_dropped"))
+                # child-side rebalance activity in the same merged scrape
+                reg.gauge(M.CHILD_REBALANCE_FENCED_GAUGE,
+                          lambda: ct.field("rebalance_fenced"))
+                reg.gauge(M.CHILD_REBALANCE_ABANDONED_GAUGE,
+                          lambda: ct.field("rebalance_abandoned"))
+        else:
+            for i in range(self._b._thread_count):
+                w = _Worker(self, i)
+                self._workers.append(w)
+                w.start()
         if self._b._supervise:
             self._supervisor = threading.Thread(
                 target=self._supervise_loop,
@@ -473,6 +514,13 @@ class KafkaProtoParquetWriter:
                 poll_interval_s=self._b._watchdog_poll,
                 on_stall=self._on_watchdog_stall)
             self._watchdog_obj.start()
+        if self._b._compaction:
+            self._compactor = Compactor(
+                self.fs, self.target_dir, self._b._proto_class,
+                self.properties, registry=self._b._metric_registry,
+                instance_name=self._b._instance_name,
+                **self._b._compaction)
+            self._compactor.start()
 
     def _gc_abandoned_tmp(self) -> None:
         """Remove .tmp files left by a previous run of THIS instance name

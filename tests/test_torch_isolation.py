@@ -14,8 +14,11 @@
   ``CudaChunkEncoder`` refuses to run without it;
 - the smoke run's stream phase, rehearsed at 20,000 records on the CPU,
   runs in an interpreter that refuses ``jax``, ``kpw_tpu`` and
-  ``google.protobuf`` alike: the streaming writer's wire path needs no
-  protobuf.
+  ``google.protobuf`` alike (and so do the worker processes it spawns):
+  the streaming writer's wire path needs no protobuf;
+- a spawned process-worker child rebuilds a descriptor stand-in class from
+  its spec and shreds with it, with none of ``jax``, ``kpw_tpu`` or
+  ``google`` in its ``sys.modules``.
 """
 
 import io
@@ -43,6 +46,7 @@ _REFUSE = textwrap.dedent("""
     import importlib, pkgutil, sys
 
     BLOCKED = ("jax", "jaxlib", "kpw_tpu") + EXTRA
+    REFUSED = []  # every refused import, also one a caller swallowed
 
     def blocked(name):
         return any(name == b or name.startswith(b + ".") for b in BLOCKED)
@@ -50,6 +54,7 @@ _REFUSE = textwrap.dedent("""
     class Refuse:
         def find_spec(self, name, path=None, target=None):
             if blocked(name):
+                REFUSED.append(name)
                 raise ImportError(f"the port must not import {name}")
             return None
 
@@ -95,42 +100,112 @@ def test_port_imports_without_jax_or_kpw_tpu():
                 "kpw_tpu_torch.runtime.export", "kpw_tpu_torch.runtime.telemetry",
                 "kpw_tpu_torch.runtime.watchdog", "kpw_tpu_torch.runtime.partition",
                 "kpw_tpu_torch.runtime.parquet_file", "kpw_tpu_torch.runtime.select",
-                "kpw_tpu_torch.runtime.writer", "kpw_tpu_torch.runtime.builder"):
+                "kpw_tpu_torch.runtime.writer", "kpw_tpu_torch.runtime.builder",
+                "kpw_tpu_torch.runtime.procworkers", "kpw_tpu_torch.runtime.multiwriter",
+                "kpw_tpu_torch.io.compact"):
         assert mod in names.split()
 
 
+# Probes that spawn worker processes run from a file: a spawned child
+# runs the file's top level again (as ``__mp_main__``), so the refusal hook
+# is live in the children too.
 _STREAM_PROBE = "EXTRA = ('google',)\n" + _REFUSE + textwrap.dedent("""
-    import torch
-    torch.set_num_threads(1)
-    sys.path.insert(0, ".")
-    import chip_smoke
-    from kpw_tpu_torch.ops.bitpack import pack_pages
-    from kpw_tpu_torch.ops.delta import delta_page_streams
-    from kpw_tpu_torch.ops.rank import hist_dict, rank_pages
+    if __name__ == "__main__":
+        import torch
+        torch.set_num_threads(1)
+        sys.path.insert(0, ".")
+        import chip_smoke
+        from kpw_tpu_torch.ops.bitpack import pack_pages
+        from kpw_tpu_torch.ops.delta import delta_page_streams
+        from kpw_tpu_torch.ops.rank import hist_dict, rank_pages
 
-    counters = {"bitpack": pack_pages, "hist": hist_dict, "rank": rank_pages,
-                "delta": delta_page_streams}
-    launches = chip_smoke.phase_stream(torch, counters, small=True, device="cpu")
-    assert launches == dict.fromkeys(counters, 0), launches
-    leaked = sorted(m for m in sys.modules if blocked(m))
-    assert not leaked, leaked
-    print("stream ok")
+        counters = {"bitpack": pack_pages, "hist": hist_dict, "rank": rank_pages,
+                    "delta": delta_page_streams}
+        launches = chip_smoke.phase_stream(torch, counters, small=True, device="cpu")
+        assert launches == dict.fromkeys(counters, 0), launches
+        leaked = sorted(m for m in sys.modules if blocked(m))
+        assert not leaked and not REFUSED, (leaked, REFUSED)
+        print("stream ok")
 """)
 
 
-def test_stream_phase_runs_without_protobuf():
-    """The stream phase at its rehearsal size (20,000 records, every arm
-    and the deterministic arm, ``device="cpu"``) with ``jax``, ``kpw_tpu``
-    and ``google`` refused: records come from the smoke run's descriptor
-    stand-ins and wire encoder, and the writer shreds them from the wire."""
+def _run_probe(tmp_path, probe: str, timeout: float):
     import os
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    out = subprocess.run([sys.executable, "-c", _STREAM_PROBE], cwd=root,
-                         capture_output=True, text=True, timeout=600)
+    script = tmp_path / "probe.py"
+    script.write_text(probe)
+    out = subprocess.run([sys.executable, str(script)], cwd=root,
+                         capture_output=True, text=True, timeout=timeout)
     assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
-    assert "stream ok" in out.stdout
-    assert "[stream deterministic]" in out.stdout
+    return out.stdout
+
+
+def test_stream_phase_runs_without_protobuf(tmp_path):
+    """The stream phase at its rehearsal size (20,000 records, every arm —
+    worker threads and worker processes — the deterministic arms and the
+    routes arm, ``device="cpu"``) with ``jax``, ``kpw_tpu`` and ``google``
+    refused, in the parent and in every child it spawns: records come
+    from the smoke run's descriptor stand-ins and wire encoder, and the
+    writer shreds them from the wire."""
+    out = _run_probe(tmp_path, _STREAM_PROBE, 900)
+    assert "stream ok" in out
+    assert out.count("[stream deterministic]") == 2
+    assert "[stream routes]" in out and "[stream cuda p4]" in out
+
+
+_CHILD_PROBE = "EXTRA = ('google',)\n" + _REFUSE + textwrap.dedent("""
+    import numpy as np
+
+    def child(spec, payloads, q):
+        from kpw_tpu_torch.models.proto_bridge import ProtoColumnarizer
+        from kpw_tpu_torch.runtime.procworkers import _proto_class_from_spec
+
+        cls = _proto_class_from_spec(spec)
+        batch = ProtoColumnarizer(cls).columnarize_payloads(payloads)
+        digest = [(np.asarray(c.values.offsets).tobytes() + bytes(c.values.data)
+                   if hasattr(c.values, "offsets") else np.asarray(c.values).tobytes(),
+                   None if c.def_levels is None else c.def_levels.tobytes(),
+                   None if c.rep_levels is None else c.rep_levels.tobytes())
+                  for c in batch.chunks]
+        q.put((sorted(m for m in sys.modules if blocked(m)), REFUSED,
+               type(cls.DESCRIPTOR).__module__, batch.num_rows, digest))
+
+    if __name__ == "__main__":
+        sys.path.insert(0, ".")
+        import chip_smoke
+        from kpw_tpu_torch.runtime import procworkers as pw
+
+        order = chip_smoke.order_class()
+        payloads = chip_smoke.order_payloads(
+            *chip_smoke.order_rows(np.random.default_rng(5), 300))
+        spec = pw._proto_spec(order)
+        assert spec[0] == "snapshot", spec[0]
+        q = pw._MP_CTX.Queue()
+        p = pw._MP_CTX.Process(target=child, args=(spec, payloads, q))
+        p.start()
+        leaked, refused, module, rows, digest = q.get(timeout=300)
+        p.join(60)
+        assert p.exitcode == 0, p.exitcode
+        assert not leaked and not refused, (leaked, refused)
+        assert module == "kpw_tpu_torch.runtime.procworkers", module
+        import queue
+
+        local = queue.SimpleQueue()  # the same shred, in the parent
+        child(spec, payloads, local)
+        assert local.get()[3:] == (rows, digest) and rows == 300
+        print("child ok")
+""")
+
+
+def test_spawned_child_rebuilds_standin_without_protobuf(tmp_path):
+    """The descriptor spec of a stand-in class (the smoke run's ``Order``)
+    crosses the spawn boundary as plain data: a child spawned by the
+    process pool's own context rebuilds the class from it and shreds the
+    config-5 records to the same columns as the parent, with none of
+    ``jax``, ``kpw_tpu`` or ``google`` in its ``sys.modules`` and no
+    import of them refused along the way."""
+    assert "child ok" in _run_probe(tmp_path, _CHILD_PROBE, 300)
 
 
 def _no_cuda(monkeypatch):
