@@ -84,8 +84,32 @@ Phases, in order; any failed check exits non-zero before the result lines:
    file; then the routes arm: config 1's records and config 5's orders
    through one ``MultiWriter`` (``Builder.route``), ``"cuda"`` on every
    route, both drained with ack-lag 0, files verified, the pack kernel
-   launched;
-7. timing — the delta kernel at the shapes the ``encodings`` and ``cfg3``
+   launched; then the sink arms, each with the thread arms' settings and
+   one worker thread: ``"mesh"`` (one shard per visible card),
+   ``"cuda"`` through ``Builder.object_store`` onto an
+   ``EmulatedObjectStore`` (every object read back from the store, no
+   multipart upload left pending), and ``"cuda"`` on a
+   ``FailoverFileSystem`` whose primary, a ``FaultInjectingFileSystem``
+   over a local directory, fails every open with ENOSPC until it is
+   healed after the first spill to the fallback, a second local
+   directory (every spill reconciled onto the primary before the check,
+   none left on the fallback), each beside the ``"cuda"`` x1 arm's
+   records/s;
+7. mesh — BASELINE config 4 (bench.py:1350-1357): 16 columns of 8 x
+   131,072 values from [0, 1000), seed 4, through ``sharded_encode_step``
+   (the gather route, cap 2,048) and ``sharded_encode_step_bounded`` (the
+   histogram-psum route) over 8 shards on ``cuda:0``, then over 1 shard:
+   dictionaries, k and packed bytes equal to a numpy oracle (``np.unique``,
+   ``searchsorted``, ``core.encodings.bitpack``) and to the same call on
+   CPU shards; each bounded step launches the hist and rank kernels once
+   a shard, every step the pack kernel once a shard, and every hist and
+   rank launch is replayed on the inputs the mesh gave it against its
+   plain version.  Then config 4's writer route (bench.py:1499-1512
+   column classes ``zone``, ``cents``, ``wide``): 4 row groups of 262,144
+   rows through ``MeshChunkEncoder`` over 8 shards on ``cuda:0``, the file
+   byte-identical to ``CpuChunkEncoder``'s, ``zone`` and ``cents`` on the
+   bounded route and ``wide`` (negative values) on the gather route;
+8. timing — the delta kernel at the shapes the ``encodings`` and ``cfg3``
    paths gave it, launched alone (CUDA events and the profiler's kernel
    time) and with its staging, beside its plain version and the time of a
    one-element PyTorch op on the same stream; each flagship route's step time and device profile (device ops
@@ -97,9 +121,11 @@ Phases, in order; any failed check exits non-zero before the result lines:
    (``ops.strings``) on config 1's four string columns and on the
    encodings corpus's 13-byte ``uid`` column, each equal to
    ``core.encodings.dictionary_build``, its phases beside the native
-   hash's time.
+   hash's time; each config-4 route's step time over 8 shards and over 1
+   (CUDA events, median of 25) with the merge's payload bytes, one shard's
+   hist and rank kernel times, and the gather merge's two rank methods.
 
-Phases 4, 5 and 6 are the main paths: every launch count is set to 0 just
+Phases 4, 5, 6 and 7 are the main paths: every launch count is set to 0 just
 before each of them (each arm of phase 6) and read just after, and a kernel
 of the path that never launched fails the run; the ``launches`` reported
 are their sum (a process arm's launches happen in its children and show
@@ -114,6 +140,7 @@ one JSON object with a record per kernel (the delta kernel's at the
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io
 import json
@@ -133,6 +160,12 @@ ENC_ROWS, ENC_BATCHES = 400_000, 8  # the encodings corpus: bench.py:4928
 CFG1_ROWS, CFG1_GROUPS = 262_144, 4  # BASELINE config 1: bench.py:131, 300-323
 CFG3_ROWS, CFG3_GROUPS = 131_072, 4  # BASELINE config 3: bench.py:1233-1249
 STREAM_RECORDS, STREAM_SMALL = 400_000, 20_000  # the e2e probe: bench.py:3908
+# BASELINE config 4 (bench.py:1350-1357): 16 columns, 8 shards x 131,072
+# rows of values from [0, 1000), seed 4; the gather route's cap 2,048
+CFG4_COLS, CFG4_SHARDS, CFG4_PER, CFG4_VMAX, CFG4_CAP = 16, 8, 1 << 17, 1000, 2048
+CFG4_SMALL_PER = 1024
+# config 4's writer route (bench.py:1499-1512 column classes): 4 row groups
+CFG4_ROWS, CFG4_GROUPS, CFG4_SMALL_ROWS = 262_144, 4, 16_384
 
 
 def fail(msg: str) -> None:
@@ -1674,6 +1707,239 @@ def group_breakdown(torch, name: str, batch, schema, props) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the mesh phase: BASELINE config 4 over a shard mesh
+# ---------------------------------------------------------------------------
+
+def cfg4_values(small: bool = False) -> np.ndarray:
+    """Config 4's (16, 8 x 131,072) uint32 batch (bench.py:1350-1357)."""
+    per = CFG4_SMALL_PER if small else CFG4_PER
+    rng = np.random.default_rng(4)
+    return rng.integers(0, CFG4_VMAX, (CFG4_COLS, CFG4_SHARDS * per)).astype(np.uint32)
+
+
+def cfg4_oracle(vals: np.ndarray, width: int = 16):
+    """Each column's dictionary (``np.unique``) and its rows' indices
+    (``searchsorted``) bit-packed by ``core.encodings.bitpack``."""
+    from kpw_tpu_torch.core import encodings as enc
+
+    dicts = [np.unique(row) for row in vals]
+    packed = np.stack([np.frombuffer(enc.bitpack(
+        np.searchsorted(d, row).astype(np.uint64), width), np.uint8)
+        for d, row in zip(dicts, vals)])
+    return dicts, packed
+
+
+def cfg4_steps(torch, vals: np.ndarray, n_shards: int, device: str) -> dict:
+    """Config 4's step on both routes over ``n_shards`` shards on
+    ``device`` (8 shards on one card are 8 shards on ``cuda:0``): route ->
+    a call returning (packed, dictionary, k, rows, overflow)."""
+    from kpw_tpu_torch.parallel.mesh import make_mesh
+    from kpw_tpu_torch.parallel.sharded import (sharded_encode_step,
+                                                sharded_encode_step_bounded)
+
+    mesh = make_mesh(n_shards, device=device)
+    N = vals.shape[1]
+    counts = np.full(n_shards, N // n_shards, np.int32)
+    lo = torch.from_numpy(vals.view(np.int32)).to(mesh.first)
+    hi = torch.zeros_like(lo)
+
+    def gather():
+        packed, _, mlo, gk, rows, ovf = sharded_encode_step(
+            hi, lo, counts, mesh=mesh, cap=CFG4_CAP, width=16, has_hi=False)
+        return packed, mlo, gk, rows, ovf
+
+    def bounded():
+        return sharded_encode_step_bounded(lo, counts, mesh=mesh, width=16,
+                                           value_bound=CFG4_VMAX)
+
+    return {"gather": gather, "bounded": bounded}
+
+
+def cfg4_writer_setup(small: bool = False):
+    """Config 4's writer route: the bench's column classes (bench.py:1499-1512)
+    at 4 row groups of 262,144 rows: ``zone`` int32 in [1, 266), ``cents``
+    int64 multiples of 25 below 125,000, ``wide`` int64 in [-500, 500)
+    (negative, so it takes the gather route)."""
+    from kpw_tpu_torch.core import Schema, WriterProperties, columns_from_arrays, leaf
+
+    rows = CFG4_SMALL_ROWS if small else CFG4_ROWS
+    rng = np.random.default_rng(46)
+    schema = Schema([leaf("zone", "int32"), leaf("cents", "int64"),
+                     leaf("wide", "int64")])
+    groups = [columns_from_arrays(schema, {
+        "zone": rng.integers(1, 266, rows).astype(np.int32),
+        "cents": (rng.integers(0, 5000, rows) * 25).astype(np.int64),
+        "wide": rng.integers(-500, 500, rows).astype(np.int64)})
+        for _ in range(CFG4_GROUPS)]
+    return groups, schema, WriterProperties()
+
+
+@contextlib.contextmanager
+def recording(module, store: dict):
+    """Inside the block, each call of ``module.<name>`` for each name in
+    ``store`` appends its arguments to ``store[name]``."""
+    origs = {name: getattr(module, name) for name in store}
+
+    def wrap(name):
+        def wrapper(*args, **kwargs):
+            store[name].append(args)
+            return origs[name](*args, **kwargs)
+        return wrapper
+
+    for name in store:
+        setattr(module, name, wrap(name))
+    try:
+        yield
+    finally:
+        for name, f in origs.items():
+            setattr(module, name, f)
+
+
+def mesh_path(torch, counters: dict, small: bool = False, device: str = "cuda") -> dict:
+    """Config 4 over a shard mesh.  The step (``sharded_encode_step``, the
+    gather route, and ``sharded_encode_step_bounded``, the histogram-psum
+    route) over 8 shards on ``device``, then over 1: dictionaries, k and
+    packed bytes equal to the numpy oracle and to the same call on CPU
+    shards; each bounded step launches the hist and rank kernels once a
+    shard, and every step the pack kernel once a shard.  Then config 4's
+    writer route: 4 row groups through ``MeshChunkEncoder`` over 8 shards,
+    the file byte-identical to ``CpuChunkEncoder``'s, ``zone`` and
+    ``cents`` on the bounded route, ``wide`` on the gather route.  Returns
+    what the timing needs and the hist / rank inputs the mesh gave the
+    kernels."""
+    from kpw_tpu_torch.core.pages import CpuChunkEncoder
+    from kpw_tpu_torch.parallel import sharded
+    from kpw_tpu_torch.parallel.mesh import make_mesh
+    from kpw_tpu_torch.parallel.mesh_encoder import MeshChunkEncoder
+
+    vals = cfg4_values(small)
+    dicts, want_packed = cfg4_oracle(vals)
+    recorded = {"hist_pages": [], "rank_pages": []}
+    steps = {}
+    for n_shards in (CFG4_SHARDS, 1):
+        steps[n_shards] = cfg4_steps(torch, vals, n_shards, device)
+        cpu = cfg4_steps(torch, vals, n_shards, "cpu")
+        for route, step in steps[n_shards].items():
+            before = {k: f.launches for k, f in counters.items()}
+            with recording(sharded, recorded):
+                got = step()
+            grew = {k: f.launches - before[k] for k, f in counters.items()}
+            want_grew = {"bitpack": n_shards, "hist": 0, "rank": 0, "delta": 0}
+            if route == "bounded":
+                want_grew.update(hist=n_shards, rank=n_shards)
+            if device == "cuda":
+                check(grew == want_grew, f"mesh {route} x{n_shards}: launches "
+                      f"{grew}, not {want_grew} (one a shard)")
+            host = [t.cpu() for t in got]
+            packed, dic, k, rows, ovf = host
+            check(int(rows) == vals.shape[1] and int(ovf) == 0,
+                  f"mesh {route} x{n_shards}: rows {int(rows)}, overflow {int(ovf)}")
+            check(np.array_equal(packed.numpy(), want_packed),
+                  f"mesh {route} x{n_shards}: packed bytes differ from the oracle")
+            for c, d in enumerate(dicts):
+                check(int(k[c]) == len(d) and np.array_equal(
+                    dic[c, :len(d)].numpy(), d.astype(np.int64)),
+                    f"mesh {route} x{n_shards}: column {c}'s dictionary differs "
+                    "from the oracle")
+            t0 = time.perf_counter()
+            want_cpu = cpu[route]()
+            cpu_s = time.perf_counter() - t0
+            for name, g, w in zip(("packed", "dictionary", "k", "rows", "overflow"),
+                                  host, want_cpu):
+                check(torch.equal(g, w), f"mesh {route} x{n_shards}: {name} "
+                      "differs from the CPU shards'")
+            say(f"[mesh] config 4 {route} route, {n_shards} shard(s) on "
+                f"{device}: ({vals.shape[0]}, {vals.shape[1]}) uint32 from "
+                f"[0, {CFG4_VMAX}): == numpy oracle == CPU shards (their call "
+                f"{cpu_s:.2f} s); launches {grew}")
+
+    groups, schema, props = cfg4_writer_setup(small)
+    opts = props.encoder_options()
+    menc = MeshChunkEncoder(opts, mesh=make_mesh(CFG4_SHARDS, device=device))
+    before = {k: f.launches for k, f in counters.items()}
+    with recording(sharded, recorded):
+        data, seconds, _ = write_batches(menc, groups, schema, props)
+    grew = {k: f.launches - before[k] for k, f in counters.items()}
+    want, cpu_seconds, _ = write_batches(CpuChunkEncoder(opts), groups, schema, props)
+    check(data == want, "mesh writer: the MeshChunkEncoder file differs from "
+          "CpuChunkEncoder's")
+    routes = {}
+    for e in menc.route_log:
+        check(e["accepted"], f"mesh writer: {e} not accepted")
+        routes.setdefault(e["column"], set()).add(e["route"])
+    check(routes == {"zone": {"bounded-psum"}, "cents": {"bounded-psum"},
+                     "wide": {"two-phase-gather"}},
+          f"mesh writer: routes {routes}")
+    bounded_launches = 2 * len(groups) * CFG4_SHARDS
+    if device == "cuda":
+        check(grew["hist"] == grew["rank"] == bounded_launches,
+              f"mesh writer: launches {grew}, not {bounded_launches} hist and rank "
+              "(2 bounded columns x row groups x shards)")
+    rows = CFG4_GROUPS * (CFG4_SMALL_ROWS if small else CFG4_ROWS)
+    say(f"[mesh] config 4 writer route: {CFG4_GROUPS} row groups of {rows // CFG4_GROUPS} "
+        f"rows through MeshChunkEncoder over {CFG4_SHARDS} shards on {device}: "
+        f"byte-identical to CpuChunkEncoder ({len(data)} bytes); routes "
+        f"{ {c: sorted(r) for c, r in routes.items()} }; ici_stats {menc.ici_stats}; "
+        f"launches {grew}; {rows / seconds:.0f} rows/s (CpuChunkEncoder "
+        f"{rows / cpu_seconds:.0f})")
+    return {"steps": steps, "recorded": recorded, "vals": vals}
+
+
+def check_mesh_inputs(torch, recorded: dict) -> dict:
+    """Every hist and rank launch of the mesh path replayed on the inputs
+    the mesh gave it, against the plain version: max error by kernel."""
+    from kpw_tpu_torch.ops import rank
+
+    err = {"hist": 0, "rank": 0}
+    for m, nhi in recorded["hist_pages"]:
+        got = rank.hist_dict(m, m.shape[1], nhi)
+        want = rank.hist_dict_plain(m, m.shape[1], nhi)
+        err["hist"] = max(err["hist"], *(max_abs_err(torch, g, w)
+                                          for g, w in zip(got, want)))
+    for m, rt in recorded["rank_pages"]:
+        err["rank"] = max(err["rank"], max_abs_err(
+            torch, rank.rank_pages(m, rt), rank.rank_pages_plain(m, rt)))
+    check(err == {"hist": 0, "rank": 0}, f"mesh: a kernel differs from its plain "
+          f"version on the mesh's inputs: {err}")
+    say(f"[mesh] replayed {len(recorded['hist_pages'])} hist and "
+        f"{len(recorded['rank_pages'])} rank launches on the mesh's inputs (the "
+        "steps' and the writer route's): == plain versions")
+    return err
+
+
+def mesh_timing(torch, timer: Timer, out: dict) -> None:
+    """Each config-4 route's step time over 8 shards and over 1 on the card
+    (CUDA events, median of 25), the merge's payload, one shard's hist and
+    rank kernel times, and the gather merge's rank."""
+    from kpw_tpu_torch.ops import rank
+    from kpw_tpu_torch.parallel import dict_merge
+    from kpw_tpu_torch.parallel.sharded import bounded_psum_payload_bytes
+
+    vals = out["vals"]
+    C, N = vals.shape
+    for n_shards, steps in out["steps"].items():
+        times = {route: timer.ms(step) for route, step in steps.items()}
+        say(f"[mesh] config 4 step, {n_shards} shard(s): "
+            + ", ".join(f"{r} {t:.4f} ms ({N / t / 1e3:.0f} M rows/s)"
+                        for r, t in times.items())
+            + f"; merge payload a step: gather {n_shards * CFG4_CAP * 5 * C} B "
+            f"(keys 4 B + valid 1 B, cap {CFG4_CAP}, a shard), psum "
+            f"{n_shards * bounded_psum_payload_bytes(CFG4_VMAX) * C} B "
+            f"({bounded_psum_payload_bytes(CFG4_VMAX)} B a column a shard)")
+    m, nhi = out["recorded"]["hist_pages"][0]
+    _, rt = out["recorded"]["rank_pages"][0]
+    say(f"[mesh] one shard's kernels at ({m.shape[0]}, {m.shape[1]}) nhi {nhi}: hist "
+        f"(the whole hist_dict launch) {timer.ms(lambda: rank.hist_pages(m, nhi)):.4f} ms, "
+        f"rank {timer.ms(lambda: rank.rank_pages(m, rt)):.4f} ms")
+    d = torch.arange(CFG4_VMAX, device="cuda").expand(C, CFG4_VMAX).contiguous()
+    k = torch.full((C,), CFG4_VMAX, device="cuda")
+    v = dict_merge._u32(m)
+    search = timer.ms(lambda: dict_merge._rank_keys(d, k, v, has_hi=False))
+    say(f"[mesh] gather merge's rank of one shard ({C}, {v.shape[1]}) against "
+        f"{CFG4_VMAX} keys (torch.searchsorted): {search:.4f} ms")
+
+
+# ---------------------------------------------------------------------------
 # the stream phase: the streaming writer end to end
 # ---------------------------------------------------------------------------
 
@@ -1692,6 +1958,87 @@ STREAM_ARMS = (("cuda x1", "cuda", 1, 0, 8), ("cuda x4", "cuda", 4, 0, 8),
                ("native p1 i64", "native", 1, 1, 64),
                ("native p4 i64", "native", 1, 4, 64))
 DET_SLOT_BYTES = 8192  # the deterministic process arm's ring slots
+# the sink arms, each with the thread arms' settings: (label, encoder
+# backend, sink); "mesh" takes one shard per visible card
+SINK_ARMS = (("mesh x1", "mesh", "local"), ("objectstore x1", "cuda", "objectstore"),
+             ("failover x1", "cuda", "failover"))
+OBJECT_PART = 1 << 20  # the object store's part size: a 4 MiB file in 4 parts
+
+
+def rooted_fs(root: str):
+    """A LocalFileSystem that keeps the logical path p at ``root + p``: the
+    failover arm's fallback, which must see the primary's paths."""
+    from kpw_tpu_torch import LocalFileSystem
+
+    class Rooted(LocalFileSystem):
+        def _p(self, path: str) -> str:
+            return root + path
+
+        def mkdirs(self, path):
+            super().mkdirs(self._p(path))
+
+        def open_write(self, path):
+            return super().open_write(self._p(path))
+
+        def open_append(self, path):
+            return super().open_append(self._p(path))
+
+        def open_read(self, path):
+            return super().open_read(self._p(path))
+
+        def rename(self, src, dst):
+            super().rename(self._p(src), self._p(dst))
+
+        def sync(self, path):
+            super().sync(self._p(path))
+
+        def sync_dir(self, path):
+            super().sync_dir(self._p(path))
+
+        def exists(self, path):
+            return super().exists(self._p(path))
+
+        def delete(self, path):
+            super().delete(self._p(path))
+
+        def size(self, path):
+            return super().size(self._p(path))
+
+        def list_files(self, path, extension=None, recursive=True):
+            return [f[len(root):] for f in
+                    super().list_files(self._p(path), extension, recursive)]
+
+    return Rooted()
+
+
+def failover_sink(root: str, name: str):
+    """A FailoverFileSystem whose primary is a FaultInjectingFileSystem over
+    the local directory, every open failing with ENOSPC from the first
+    until healed, and whose fallback is a second local directory.  Returns
+    (the filesystem, a tick that heals the primary once a file spilled, a
+    predicate true once every spill was reconciled onto the primary)."""
+    import errno
+
+    from kpw_tpu_torch import (FailoverFileSystem, FaultInjectingFileSystem,
+                               FaultSchedule, LocalFileSystem)
+
+    sched = FaultSchedule(seed=0).recover_after("open", nth=1, err=errno.ENOSPC)
+    ffs = FailoverFileSystem(FaultInjectingFileSystem(LocalFileSystem(), sched),
+                             rooted_fs(os.path.join(root, name + "-fallback")),
+                             probe_interval_s=0.05)
+    healed = []
+
+    def tick():
+        if not healed and ffs.failover_stats()["spilled"] >= 1:
+            sched.heal()
+            healed.append(True)
+
+    def reconciled():
+        st = ffs.failover_stats()
+        return (healed and not ffs.degraded() and not st["spilled_pending"]
+                and st["reconciled"] == st["spilled"] >= 1)
+
+    return ffs, tick, reconciled
 
 
 def stream_builder(broker, topic: str, target: str, backend: str, threads: int,
@@ -1735,9 +2082,10 @@ def stream_builder(broker, topic: str, target: str, backend: str, threads: int,
 
 
 def drain(w, broker, topic: str, group: str, parts: int, rows: int,
-          deadline_s: float = 300.0) -> tuple:
+          deadline_s: float = 300.0, tick=None, ready=None) -> tuple:
     """Start ``w`` and wait until every record is written and then until
-    every offset is committed with ack-lag 0 (bench.py:3965-3990): (seconds
+    every offset is committed with ack-lag 0 (bench.py:3965-3990) and
+    ``ready()``, when given, holds; ``tick()`` runs at every poll: (seconds
     to the first record written, to all written, to drained).  The first
     is the start-up a worker process pays (interpreter, imports, a CUDA
     context) before it writes.  Fails at the deadline."""
@@ -1746,13 +2094,16 @@ def drain(w, broker, topic: str, group: str, parts: int, rows: int,
     deadline = t0 + deadline_s
     t_first = t_written = None
     while time.perf_counter() < deadline:
+        if tick is not None:
+            tick()
         if t_first is None and w.total_written_records > 0:
             t_first = time.perf_counter() - t0
         if t_written is None and w.total_written_records >= rows:
             t_written = time.perf_counter() - t0
         if (t_written is not None
                 and sum(broker.committed(group, topic, p) for p in range(parts)) >= rows
-                and w.ack_lag()["unacked_records"] == 0):
+                and w.ack_lag()["unacked_records"] == 0
+                and (ready is None or ready())):
             return t_first, t_written, time.perf_counter() - t0
         time.sleep(0.002)
     fail(f"stream {group}: not drained within {deadline_s:.0f} s: written "
@@ -1761,15 +2112,16 @@ def drain(w, broker, topic: str, group: str, parts: int, rows: int,
          f"ack lag {w.ack_lag()}")
 
 
-def published(target: str, rows: int, label: str) -> list:
-    """Every published file under ``target``, verified by the port's
-    ``verify_file``; their footers' row counts must sum to ``rows``.
-    Returns the reports in publish order (the file names start with the
-    publish time)."""
+def published(target: str, rows: int, label: str, fs=None) -> list:
+    """Every published file under ``target`` on ``fs`` (default: the local
+    filesystem), read back and verified by the port's ``verify_file``;
+    their footers' row counts must sum to ``rows``.  Returns the reports in
+    publish order (the file names start with the publish time)."""
     from kpw_tpu_torch import LocalFileSystem
     from kpw_tpu_torch.io.verify import verify_dir
 
-    reports = sorted(verify_dir(LocalFileSystem(), target), key=lambda r: r.path)
+    reports = sorted(verify_dir(fs or LocalFileSystem(), target),
+                     key=lambda r: r.path)
     bad = [(r.path, r.errors) for r in reports if not r.ok]
     check(not bad, f"stream {label}: files failed verification: {bad[:3]}")
     total = sum(r.num_rows for r in reports)
@@ -1803,10 +2155,16 @@ def child_spans(w, name: str) -> dict:
 
 def stream_arm(broker, topic: str, parts: int, rows: int, backend: str,
                threads: int, device: str, root: str, name: str,
-               tracing: bool = False, procs: int = 0, inflight: int = 8) -> dict:
+               tracing: bool = False, procs: int = 0, inflight: int = 8,
+               sink: str = "local") -> dict:
     """One arm: drain the primed topic through a fresh writer and consumer
-    group, close it, verify its files.  Returns records/s (to all written),
-    the drain time, the files, the rows per row group and, with
+    group, close it, verify its files.  ``sink``: ``"local"``, a local
+    directory; ``"objectstore"``, an ``EmulatedObjectStore`` through
+    ``Builder.object_store`` (every object read back from the store, no
+    multipart upload left pending); ``"failover"``, :func:`failover_sink`
+    (at least one spill, every spill reconciled onto the primary before
+    the check, none left on the fallback).  Returns records/s (to all
+    written), the drain time, the files, the rows per row group and, with
     ``tracing``, the SpanRecorder's spans summed by stage; with ``procs``
     and ``tracing``, the ``encode.launch`` spans (recorded only by
     ``CudaChunkEncoder`` around its launches) that each child shipped."""
@@ -1815,21 +2173,52 @@ def stream_arm(broker, topic: str, parts: int, rows: int, backend: str,
                        procs=procs, inflight=inflight)
     if tracing:
         b.tracing(True)
+    fs = tick = ready = ffs = None
+    if sink == "objectstore":
+        from kpw_tpu_torch import EmulatedObjectStore, ObjectStoreFileSystem
+
+        store = EmulatedObjectStore()
+        b.object_store(store, "kpw", part_size=OBJECT_PART)
+        fs = ObjectStoreFileSystem(store, "kpw")
+    elif sink == "failover":
+        ffs, tick, ready = failover_sink(root, name)
+        b.filesystem(ffs)
     w = b.build()
     try:
-        t_first, t_written, t_drained = drain(w, broker, topic, name, parts, rows)
+        t_first, t_written, t_drained = drain(w, broker, topic, name, parts, rows,
+                                              tick=tick, ready=ready)
         spans = span_sums(w.span_recorder) if tracing and not procs else {}
     finally:
         w.close()
+        if ffs is not None:
+            ffs.close()
     launch_spans = child_spans(w, "encode.launch") if tracing and procs else {}
-    reports = published(target, rows, name)
+    sink_note = ""
+    if sink == "objectstore":
+        st = store.stats()
+        check(st["multipart_pending"] == 0, f"stream {name}: multipart uploads "
+              f"left pending: {st}")
+        sink_note = (f"; store: {st['objects']} objects ({st['multipart_completed']} "
+                     f"multipart, {st['parts_uploaded']} parts), multipart pending 0, "
+                     f"{st['requests_total']} requests")
+    elif sink == "failover":
+        from kpw_tpu_torch.io.verify import verify_dir
+
+        st = ffs.failover_stats()
+        left = [r.path for r in verify_dir(ffs.fallback, target)]
+        check(not left, f"stream {name}: finals left on the fallback: {left}")
+        sink_note = (f"; failover: {st['spilled']} spilled, {st['reconciled']} "
+                     f"reconciled onto the primary, failovers {st['failovers']}, "
+                     f"recoveries {st['recoveries']}, none left on the fallback")
+    reports = published(target, rows, name, fs)
     groups = sum(r.row_groups for r in reports)
     # steady: after the first record was written, once the workers are up
     return {"rows_s": rows / t_written, "written_s": t_written,
             "first_s": t_first, "steady_rows_s": rows / max(t_written - t_first, 1e-9),
             "drained_s": t_drained, "files": len(reports),
             "rows_per_group": rows / groups, "spans": spans,
-            "choice": w.encoder_choice, "child_launch_spans": launch_spans}
+            "choice": w.encoder_choice, "child_launch_spans": launch_spans,
+            "sink": sink_note}
 
 
 def deterministic_files(payloads: list, backend: str, device: str, root: str,
@@ -1940,10 +2329,10 @@ def phase_stream(torch, counters: dict, small: bool = False, device: str = "cuda
     ``close()``, on BASELINE config 1's records in the shape of the e2e
     probe (bench.py:3769-3990): 400,000 records (small: 20,000, without
     the in-flight-64 arms) on a FakeBroker topic of 4 partitions primed
-    before ``start()``.  Each arm of :data:`STREAM_ARMS` must drain to every offset committed with
-    ack-lag 0, every published file must verify and their footers' rows
-    sum to the records; a card arm with threads must launch the pack
-    kernel, and each child of a card arm with processes must ship the
+    before ``start()``.  Each arm of :data:`STREAM_ARMS` and
+    :data:`SINK_ARMS` must drain to every offset committed with ack-lag 0,
+    every published file must verify and their footers' rows sum to the
+    records; a card arm with threads must launch the pack kernel, and each child of a card arm with processes must ship the
     ``encode.launch`` spans of its CudaChunkEncoder (the parent's counters
     see no child's launch).  Then the deterministic arm's files from the
     ``"cuda"``, ``"native"`` and ``"cpu"`` encoders must be
@@ -1998,6 +2387,22 @@ def phase_stream(torch, counters: dict, small: bool = False, device: str = "cuda
                 f"in {r['drained_s']:.3f} s); {r['files']} files verified, footers "
                 f"{rows} rows, {r['rows_per_group']:.0f} rows per row group; "
                 f"parent's launches {got}{extra}")
+        for label, backend, sink in SINK_ARMS:
+            for f in counters.values():
+                f.launches = 0
+            r = stream_arm(broker, "e2e", parts, rows, backend, 1, device, root,
+                           label.replace(" ", ""), sink=sink)
+            got = {k: f.launches for k, f in counters.items()}
+            if backend == "cuda" and device == "cuda":
+                check(got["bitpack"] > 0, f"stream {label}: the pack kernel never "
+                      f"launched: {got}")
+            launches = {k: launches[k] + got[k] for k in counters}
+            results[label] = r
+            say(f"[stream {label}] {r['rows_s']:.0f} records/s to all written "
+                f"({r['written_s']:.3f} s), cuda x1 {results['cuda x1']['rows_s']:.0f}; "
+                f"drained, committed {rows} with ack lag 0, in {r['drained_s']:.3f} s; "
+                f"{r['files']} files verified, footers {rows} rows{r['sink']}; "
+                f"launches {got}")
         spans = results["cuda x1"]["spans"]
         check(all(k in spans for k in ("consumer.fetch", "worker.shred",
                                        "rowgroup.io_write")),
@@ -2095,12 +2500,18 @@ def main() -> None:
               f"{path}: a kernel of the path never launched: {got}")
         return out, got
 
+    t_start = time.perf_counter()
+
+    def elapsed(what: str) -> None:
+        say(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s")
+
     card = phase_card(torch)
     native_build = start_native_build()
     phase_build()
     phase_native(*native_build)
     timer = Timer(torch)
     recs = phase_kernels(torch, timer)
+    elapsed("build, native, kernels")
     cases, launches = drive("flagship", ("bitpack", "hist", "rank"),
                             flagship_path, torch)
     link = probe_link()
@@ -2146,9 +2557,16 @@ def main() -> None:
                   f"{calls['pack_pages_multi']} jobs, {calls['_pad_rows']} "
                   "padded index copies")
         launches = {k: launches[k] + got[k] for k in counters}
+    elapsed("flagship, writers")
     got = phase_stream(torch, counters)
     launches = {k: launches[k] + got[k] for k in counters}
+    elapsed("stream")
+    mesh, got = drive("mesh", ("bitpack", "hist", "rank"), mesh_path, torch, counters)
+    launches = {k: launches[k] + got[k] for k in counters}
+    elapsed("mesh")
     say(f"[main path] launches: {launches}")
+    for kernel, e in check_mesh_inputs(torch, mesh["recorded"]).items():
+        recs[kernel]["max_abs_err"] = max(recs[kernel]["max_abs_err"], e)
 
     # timing and profiles after the counted runs, so they count no launch
     recs["delta"] = delta_record(torch, timer, recs["delta"]["max_abs_err"],
@@ -2162,6 +2580,9 @@ def main() -> None:
     for name, (groups, schema, props) in inputs.items():
         group_breakdown(torch, name, groups[0], schema, props)
     string_probe(torch, inputs)
+    mesh_timing(torch, timer, mesh)
+    del mesh
+    elapsed("timing")
 
     out = []
     for name, r in recs.items():

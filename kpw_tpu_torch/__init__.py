@@ -11,8 +11,10 @@ publishes files atomically and acks offsets only after a file is
 published.  Ported beneath it is the row-group encode path — the flagship
 step (``parallel.sharded.encode_step_single``, ``entry.entry``) and the
 writer's device backend, every column family the JAX package's TPU
-encoder carries — with the TPU kernels of that path as hand-written CUDA
-kernels (``csrc/``, built at first use by ``ops/_build.py``), over the
+encoder carries, and the shard mesh whose merged dictionaries let several
+partitions share a row group (``parallel/``) — with the TPU kernels of
+that path as hand-written CUDA kernels (``csrc/``, built at first use by
+``ops/_build.py``), over the
 port's own native host layer (``native/``: codecs, encode primitives, the
 nogil page assembler and the wire shredders, built with g++ at first use
 into ``_build/``).
@@ -26,5 +28,21 @@ __version__ = "0.1.0"
 
 from .runtime import Builder, MultiWriter  # noqa: E402,F401
 from .io.compact import Compactor  # noqa: E402,F401
-from .ingest import FakeBroker  # noqa: E402,F401
-from .io import LocalFileSystem, MemoryFileSystem  # noqa: E402,F401
+from .ingest import (  # noqa: E402,F401
+    FakeBroker,
+    FaultInjectingBroker,
+    KafkaBrokerClient,
+)
+from .io import (  # noqa: E402,F401
+    BandwidthBudget,
+    EmulatedObjectStore,
+    FailoverFileSystem,
+    FaultInjectingFileSystem,
+    FaultSchedule,
+    HdfsFileSystem,
+    InjectedFault,
+    LocalFileSystem,
+    MemoryFileSystem,
+    ObjectStoreFileSystem,
+    objectstore_persona,
+)

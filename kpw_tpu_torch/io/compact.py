@@ -223,12 +223,25 @@ class Compactor:
         if (bandwidth_budget is not None
                 or bandwidth_bytes_per_s is not None
                 or request_budget_per_round):
-            # the remote tier wraps the sink in the byte-throttling,
-            # request-counting filesystem of io/objectstore.py
-            raise NotImplementedError(
-                "bandwidth_bytes_per_s, request_budget_per_round and a "
-                "shared bandwidth budget need io/objectstore.py, which the "
-                "port has not ported yet")
+            # remote tier: wrap the sink in the byte-throttling +
+            # request-counting composite (reads and writes draw from ONE
+            # token bucket, so total traffic stays under the budget).
+            # ``bandwidth_budget`` is a caller-owned BandwidthBudget —
+            # the multi-tenant compaction service passes ONE bucket to
+            # every route's compactor so the merged background traffic
+            # shares a single cap instead of multiplying per tenant.
+            from .objectstore import (BandwidthBudget,
+                                      BandwidthBudgetedFileSystem)
+
+            if bandwidth_budget is not None:
+                self._budget = bandwidth_budget
+                # surface the SHARED bucket's rate in compactor_stats'
+                # remote block (this compactor draws from it even though
+                # no per-compactor rate was configured)
+                self.bandwidth_bytes_per_s = bandwidth_budget.rate
+            elif bandwidth_bytes_per_s is not None:
+                self._budget = BandwidthBudget(bandwidth_bytes_per_s)
+            fs = BandwidthBudgetedFileSystem(fs, self._budget)
         self.fs = fs
         self.target_dir = target_dir.rstrip("/")
         self.proto_class = proto_class

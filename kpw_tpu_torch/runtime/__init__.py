@@ -1,8 +1,7 @@
 """Writer runtime: Builder config API, orchestrator, worker pool, rotation,
 retry, metrics — the reference's L3-L5 layers rebuilt (SURVEY.md §1).  The
-port runs thread and process workers, compaction and multi-route writers;
-object stores are not ported yet (``Builder.build`` raises
-``NotImplementedError`` for them)."""
+port runs thread and process workers, compaction and multi-route writers
+over local, in-memory, HDFS, object-store and failover sinks."""
 
 from .builder import Builder  # noqa: F401
 from .export import registry_to_json, registry_to_prometheus  # noqa: F401

@@ -7,13 +7,6 @@ auto-derivation / equation check (:735-746).  Deliberate divergences, per
 SURVEY.md §5: `max_file_size=0` is rejected loudly (the reference's javadoc
 falsely promises "no limit"), and the parquet page size defaults to 1 MiB
 rather than inheriting the 128 MiB block size (a reference quirk).
-
-The port runs thread or process workers, compaction and multi-tenant
-routes over a ``LocalFileSystem`` or ``MemoryFileSystem`` sink.  Options
-whose modules are not ported yet (object stores and compaction's
-bandwidth and request budgets, the Kafka client, HDFS) are accepted by
-their setters and raise ``NotImplementedError`` at ``build()``, naming the
-module.
 """
 
 from __future__ import annotations
@@ -25,6 +18,7 @@ import socket
 from ..core.compression import codec_from_name
 from ..core.writer import WriterProperties
 from ..io.fs import FileSystem, LocalFileSystem
+from ..io.objectstore import ObjectStoreFileSystem
 
 MIN_MAX_FILE_SIZE = 100 * 1024  # reference MIN_MAX_FILE_SIZE (KPW.java:453)
 
@@ -90,7 +84,6 @@ class Builder:
         # the port's entry points run on the card unless asked otherwise
         self._backend = "cuda"
         self._backend_device = "cuda"
-        self._object_store: tuple | None = None
         # 3-stage ingest/encode/flush overlap; None = auto (on for
         # multicore hosts, inline when there is only one core to share —
         # thread hand-offs between stages then cost ~5-10% and add
@@ -494,17 +487,21 @@ class Builder:
         file bytes roll to an anonymous local tmp file (seek-back
         re-upload and close-time re-ship stay byte-perfect), so memory
         stays bounded at GiB-rotation scale."""
-        self._object_store = (store, bucket, part_size, pipeline_uploads,
-                              spill_threshold_bytes)
+        self._filesystem = ObjectStoreFileSystem(
+            store, bucket, part_size=part_size,
+            pipeline_uploads=pipeline_uploads,
+            spill_threshold_bytes=spill_threshold_bytes)
         return self
 
     def encoder_backend(self, backend, device="cuda") -> "Builder":
         """'cuda' (the default: ``CudaChunkEncoder`` on ``device``) |
-        'native' | 'cpu' | 'auto' (chosen by ``runtime/select.py``), or an
-        object with encode(chunk, offset).  'cuda' and 'auto' raise at
+        'native' | 'cpu' | 'auto' (chosen by ``runtime/select.py``) |
+        'mesh' (``parallel/mesh_encoder.py``: a ``MeshChunkEncoder`` over
+        ``make_mesh(device=device)``, one shard per visible card, whose
+        dictionaries are merged across the shards), or an object with
+        encode(chunk, offset).  'cuda', 'auto' and 'mesh' raise at
         ``build()`` when ``device`` is 'cuda' and there is no card; pass
-        ``device='cpu'`` to run the card's encoder on the CPU.  'mesh'
-        raises ``NotImplementedError`` until the mesh is ported."""
+        ``device='cpu'`` to run the card's encoders on the CPU."""
         self._backend = backend
         self._backend_device = device
         return self
@@ -931,32 +928,51 @@ class Builder:
         return self
 
     # -- build -------------------------------------------------------------
+    def _broker_from_consumer_config(self):
+        """Construct a real KafkaBrokerClient from the pass-through map
+        (the reference builds its consumer from consumerConfig the same way,
+        KPW.java:153-163)."""
+        cfg = {k.replace(".", "_"): v for k, v in self._consumer_config.items()}
+        servers = cfg.pop("bootstrap_servers", None)
+        if servers is None:
+            raise ValueError(
+                "consumer_config needs 'bootstrap.servers' when no broker() "
+                "is supplied")
+        # group.id in the map names the consumer group (KPW.java:158 only
+        # defaults it when absent) — route it to the writer's group id, which
+        # is what join_group hands the Kafka client; a conflicting explicit
+        # group_id() is a config error, not a silent override
+        cfg_group = cfg.pop("group_id", None)
+        if cfg_group is not None:
+            if self._group_id is not None and self._group_id != cfg_group:
+                raise ValueError(
+                    f"conflicting consumer groups: group_id({self._group_id!r})"
+                    f" vs consumer_config group.id {cfg_group!r}")
+            self._group_id = cfg_group
+        from ..ingest.kafka_client import KafkaBrokerClient
+
+        return KafkaBrokerClient(servers, client_config=cfg)
+
     def _filesystem_from_config(self):
         """Resolve the sink from fs.defaultFS (KPW.java:137-141 parity)."""
         cfg = dict(self._filesystem_config)
         default_fs = cfg.pop("fs.defaultFS", cfg.pop("fs_defaultFS", ""))
         if default_fs.startswith("hdfs://"):
-            raise NotImplementedError(
-                "an hdfs:// fs.defaultFS needs io/hdfs.py, which the port "
-                "has not ported yet")
+            from urllib.parse import urlparse
+
+            from ..io.hdfs import HdfsFileSystem
+
+            u = urlparse(default_fs)
+            return HdfsFileSystem(host=u.hostname or "default",
+                                  port=u.port or 8020,
+                                  extra_conf=cfg or None)
         if default_fs and not default_fs.startswith("file://"):
             raise ValueError(f"unsupported fs.defaultFS scheme: {default_fs}")
         return LocalFileSystem()
 
     def build(self):
-        compaction = self._compaction or {}
-        for unported, module in (
-                (self._broker is None and self._consumer_config is not None,
-                 "a consumer_config without a broker needs "
-                 "ingest/kafka_client.py"),
-                (self._object_store, "object_store() needs io/objectstore.py"),
-                (compaction.get("bandwidth_bytes_per_s") is not None
-                 or compaction.get("request_budget_per_round") is not None,
-                 "compaction()'s bandwidth_bytes_per_s and "
-                 "request_budget_per_round need io/objectstore.py")):
-            if unported:
-                raise NotImplementedError(
-                    f"{module}, which the port has not ported yet")
+        if self._broker is None and self._consumer_config is not None:
+            self._broker = self._broker_from_consumer_config()
         if self._routes:
             # multi-tenant mode: the MultiWriter clones this builder per
             # route (topic/proto/target applied there) and shares the
@@ -1065,6 +1081,14 @@ class Builder:
             # process mode crosses an interpreter boundary: everything a
             # child needs must be reconstructible from picklable config.
             # Fail here, at build(), not inside a spawned child.
+            if isinstance(self._filesystem, ObjectStoreFileSystem):
+                raise ValueError(
+                    "process_workers does not support an object-store "
+                    "target yet: the multipart upload handle (the staged "
+                    "pending uploads + part-uploader thread) lives in the "
+                    "parent's adapter and cannot cross the spawn boundary "
+                    "— each child would need its own upload session per "
+                    "file.  Use thread workers for object-store sinks.")
             if type(self._filesystem) is not LocalFileSystem:
                 raise ValueError(
                     "process_workers requires a plain LocalFileSystem sink "

@@ -22,9 +22,8 @@ three SHARED seams:
   of N oversubscribed ones;
 * **one compaction service** — :class:`_SharedCompactionService` drives
   every route's Compactor from ONE background thread (round-robin, per
-  route cadence preserved).  Its optional SHARED bandwidth budget needs
-  ``io/objectstore.py``, which the port has not ported yet, and raises
-  ``NotImplementedError``.
+  route cadence preserved) with an optionally SHARED bandwidth budget,
+  so background rewrite traffic cannot multiply per tenant.
 
 The BULKHEADS:
 
@@ -371,7 +370,10 @@ class _SharedCompactionService:
     long ``scan_interval_seconds`` to bound remote request/bandwidth
     cost is never scanned on a sibling's faster schedule), with a fault
     bulkhead per round — one route's compaction failure is logged and
-    contained, siblings' rounds still run."""
+    contained, siblings' rounds still run — and an optionally SHARED
+    bandwidth budget: when any route's compaction config names
+    ``bandwidth_bytes_per_s``, ONE token bucket throttles every route's
+    merge traffic (background rewrite cost cannot multiply per tenant)."""
 
     def __init__(self, compactors: dict[str, object],
                  intervals: dict[str, float]) -> None:
@@ -524,12 +526,15 @@ class MultiWriter:
     def _build_compaction(self, cfgs: dict[str, dict]):
         from ..io.compact import Compactor
 
-        if any(cfg.get("bandwidth_bytes_per_s") for cfg in cfgs.values()):
-            # ONE bucket for every route's merge traffic is
-            # io/objectstore.py's BandwidthBudget
-            raise NotImplementedError(
-                "a shared compaction bandwidth budget needs "
-                "io/objectstore.py, which the port has not ported yet")
+        shared_budget = None
+        for cfg in cfgs.values():
+            if cfg.get("bandwidth_bytes_per_s"):
+                from ..io.objectstore import BandwidthBudget
+
+                # ONE bucket for every route's merge traffic: the first
+                # route naming a budget sets the shared cap
+                shared_budget = BandwidthBudget(cfg["bandwidth_bytes_per_s"])
+                break
         compactors = {}
         intervals = {name: cfg["scan_interval_s"]
                      for name, cfg in cfgs.items()}
@@ -546,7 +551,8 @@ class MultiWriter:
                 instance_name=f"{self._b._instance_name}-{name}",
                 sort_by=cfg["sort_by"],
                 request_budget_per_round=cfg["request_budget_per_round"],
-                partition_quota=cfg["partition_quota"])
+                partition_quota=cfg["partition_quota"],
+                bandwidth_budget=shared_budget)
         return _SharedCompactionService(compactors, intervals)
 
     def _register_aggregate_gauges(self, reg) -> None:

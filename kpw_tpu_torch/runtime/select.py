@@ -6,7 +6,10 @@ the native C++ host path (``"native"``) and the card path (``"cuda"``:
 ``CudaChunkEncoder``, which runs the dictionary indices, levels and delta
 pages on the card and leaves string hashing, codecs and page assembly to
 the same host C++).  ``"auto"`` chooses between the last two by
-measurement.
+measurement.  ``"mesh"`` (``parallel/mesh_encoder.py``) splits each row
+group over a mesh of shards, one per visible card, and merges their
+dictionaries; ``"auto"`` never picks it — sharing row groups across
+partitions is a topology decision, not a link-speed one.
 
 The JAX package's rule offloads when the host-to-device link streams at
 1,000 MB/s or more and a dispatch round trip takes 10 ms or less: limits
@@ -33,8 +36,6 @@ import time
 import numpy as np
 
 BACKENDS = ("auto", "cuda", "native", "cpu")
-_MESH = ("the mesh encoder needs parallel/mesh_encoder.py, which the port has "
-         "not ported yet")
 
 _probe_lock = threading.Lock()
 _probe_cached: dict = {}  # device -> probe_link result
@@ -163,11 +164,13 @@ class CalibratingEncoder:
 
 def check_backend(backend, device="cuda") -> str:
     """Validate ``backend`` on ``device`` where the writer is built, so that
-    no worker thread meets the error: raises for an unknown name, for
-    ``"mesh"`` (not ported), and for ``"cuda"`` / ``"auto"`` on ``"cuda"``
-    without a card."""
+    no worker thread meets the error: raises for an unknown name, and for
+    ``"cuda"`` / ``"auto"`` / ``"mesh"`` on ``"cuda"`` without a card."""
     if backend == "mesh":
-        raise NotImplementedError(_MESH)
+        from ..parallel.mesh import make_mesh
+
+        make_mesh(device=device)  # raises without a card
+        return backend
     if backend not in BACKENDS:
         raise ValueError(f"unknown encoder backend: {backend!r}")
     if backend in ("cuda", "auto"):
@@ -181,7 +184,8 @@ def check_backend(backend, device="cuda") -> str:
 def make_encoder(options, backend: str = "auto", device="cuda",
                  choice: AutoChoice | None = None):
     """Instantiate a chunk encoder for ``backend`` ('auto' | 'cuda' |
-    'native' | 'cpu'); ``device`` is the card encoder's device.  For
+    'native' | 'cpu' | 'mesh'); ``device`` is the card encoders' device
+    (``"mesh"``: one shard per visible card on ``"cuda"``).  For
     ``"auto"``, ``choice`` carries a writer's decision across its encoders:
     once it is made, the chosen encoder; before, a
     :class:`CalibratingEncoder` that makes it."""
@@ -204,5 +208,7 @@ def make_encoder(options, backend: str = "auto", device="cuda",
 
         return CpuChunkEncoder(options)
     if backend == "mesh":
-        raise NotImplementedError(_MESH)
+        from ..parallel.mesh_encoder import MeshChunkEncoder
+
+        return MeshChunkEncoder(options, device=device)
     raise ValueError(f"unknown encoder backend: {backend!r}")

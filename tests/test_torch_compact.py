@@ -4,12 +4,11 @@ the JAX package's, on the same inputs: counterparts of
 packages.  Both rewrite with the CPU encoder, so the merged files they
 publish must be byte-identical; the write-ahead plan's crash protocol
 (roll forward, roll back, torn output, failed retire) must end in the
-same published tree.  Faults come from the JAX package's
-``FaultInjectingFileSystem`` wrapped around each package's own in-memory
-filesystem (the port has no fault injector yet).  The remote tier's
-options (``bandwidth_bytes_per_s``, ``request_budget_per_round``, a shared
-bandwidth budget) need ``io/objectstore.py`` and raise
-``NotImplementedError`` naming it.
+same published tree.  Faults come from each package's own
+``FaultInjectingFileSystem`` around its own in-memory filesystem.  The
+remote tier's options (``bandwidth_bytes_per_s``,
+``request_budget_per_round``, a shared bandwidth budget) wrap the sink in
+each package's ``io/objectstore.py`` throttling filesystem.
 
 The port's half of every test runs under the port's lock-order detector.
 """
@@ -24,7 +23,6 @@ import torch
 
 import kpw_tpu as J
 import kpw_tpu_torch as P
-from kpw_tpu.io import FaultInjectingFileSystem, FaultSchedule
 from kpw_tpu_torch.utils import lockcheck as p_lockcheck
 from proto_helpers import _F, _field, build_classes, nested_message_classes, \
     sample_message_class
@@ -210,7 +208,8 @@ def test_compactor_torn_rewrite_quarantined_inputs_untouched():
         cls = sample_message_class()
         inner = pkg.MemoryFileSystem()
         total = plant(pkg, inner, cls, per_dir=2, dirs=("k=0",))
-        fs = FaultInjectingFileSystem(inner, FaultSchedule(seed=3).drop_writes_from(3))
+        fs = pkg.FaultInjectingFileSystem(inner,
+                                          pkg.FaultSchedule(seed=3).drop_writes_from(3))
         reg = (P.runtime.MetricRegistry if pkg is P else J.MetricRegistry)()
         summary = compactor(pkg, fs, cls, registry=reg).compact_once()
         got, files = published(pkg, inner)
@@ -236,8 +235,8 @@ def test_compactor_recover_rolls_forward_after_partial_retire():
         cls = sample_message_class()
         inner = pkg.MemoryFileSystem()
         total = plant(pkg, inner, cls, per_dir=2, dirs=("k=0",))
-        sched = FaultSchedule(seed=4).fail_nth("rename", 3)
-        merged = compactor(pkg, FaultInjectingFileSystem(inner, sched),
+        sched = pkg.FaultSchedule(seed=4).fail_nth("rename", 3)
+        merged = compactor(pkg, pkg.FaultInjectingFileSystem(inner, sched),
                            cls).compact_once()["merged"]
         dup = any(v > 1 for v in published(pkg, inner)[0].values())
         plans = listing(inner, "/out/compacted/.plans", ".plan.json")
@@ -260,11 +259,11 @@ def test_compactor_recover_keeps_plan_when_retire_fails():
         cls = sample_message_class()
         inner = pkg.MemoryFileSystem()
         total = plant(pkg, inner, cls, per_dir=2, dirs=("k=0",))
-        sched = FaultSchedule(seed=5).fail_nth("rename", 3, count=2)
-        merged = compactor(pkg, FaultInjectingFileSystem(inner, sched),
+        sched = pkg.FaultSchedule(seed=5).fail_nth("rename", 3, count=2)
+        merged = compactor(pkg, pkg.FaultInjectingFileSystem(inner, sched),
                            cls).compact_once()["merged"]
-        sick = FaultSchedule(seed=5).fail_forever_from("rename", 1)
-        rec = compactor(pkg, FaultInjectingFileSystem(inner, sick), cls).recover()
+        sick = pkg.FaultSchedule(seed=5).fail_forever_from("rename", 1)
+        rec = compactor(pkg, pkg.FaultInjectingFileSystem(inner, sick), cls).recover()
         kept = listing(inner, "/out/compacted/.plans", ".plan.json")
         compactor(pkg, inner, cls).recover()
         got, files = published(pkg, inner)
@@ -414,31 +413,57 @@ def test_writer_with_compaction_service_end_to_end(backend):
 
 
 # ---------------------------------------------------------------------------
-# what is not ported, and the canonical names
+# the remote tier, and the canonical names
 # ---------------------------------------------------------------------------
 
-def test_remote_tier_options_raise_naming_objectstore():
-    """The bandwidth and request budgets wrap the sink in
-    ``io/objectstore.py``'s throttling filesystem, which the port has not
-    ported: the Compactor and ``Builder.build()`` raise
-    ``NotImplementedError`` naming it (the JAX package accepts them)."""
-    cls = sample_message_class()
-    fs = P.MemoryFileSystem()
-    for kw in ({"bandwidth_bytes_per_s": 1e6}, {"request_budget_per_round": 4},
-               {"bandwidth_budget": object()}):
-        with pytest.raises(NotImplementedError, match="io/objectstore.py"):
-            compactor(P, fs, cls, **kw)
-        if "bandwidth_budget" not in kw:
-            compactor(J, J.MemoryFileSystem(), cls, **kw)
-    for kw in ({"bandwidth_bytes_per_s": 1e6}, {"request_budget_per_round": 4}):
-        b = (P.Builder().broker(P.FakeBroker()).topic(TOPIC).proto_class(cls)
-             .target_dir("/out").filesystem(fs).encoder_backend("cpu")
-             .compaction(1 << 20, **kw))
-        with pytest.raises(NotImplementedError, match="io/objectstore.py"):
-            b.build()
-    # partition_quota is the local tier's: it works without the object store
-    assert compactor(P, fs, cls, partition_quota=1).compactor_stats()[
-        "remote"]["partition_quota"] == 1
+@pytest.mark.parametrize("tier", ["bandwidth", "requests", "shared_budget"])
+def test_remote_tier_options_raise_naming_objectstore(tier):
+    """The remote tier's options (a bandwidth budget, a request budget per
+    round, a caller's shared ``BandwidthBudget``) wrap the sink in
+    ``io/objectstore.py``'s throttling filesystem on both packages: the
+    same rounds merge and defer the same groups, the published trees are
+    byte-identical, and the remote block reports the same budget; the
+    ``Builder`` builds with them.  The name is the one the test had when
+    it asserted the ``NotImplementedError`` the port raised before
+    ``io/objectstore.py`` was ported: it now asserts the opposite."""
+    def scenario(pkg):
+        cls = sample_message_class()
+        fs = pkg.MemoryFileSystem()
+        total = plant(pkg, fs, cls, per_dir=6, rows_each=120)
+        sizes = [fs.size(p) for p in listing(fs, "/out", ".parquet")]
+        kw = {"bandwidth": {"bandwidth_bytes_per_s": 5e7},
+              "requests": {"request_budget_per_round": 5},
+              "shared_budget": {"bandwidth_budget": pkg.BandwidthBudget(5e7)}}[tier]
+        c = compactor(pkg, fs, cls, target_size=int(sum(sizes[:3]) / 1.2),
+                      small_file_ratio=1.0, **kw)
+        rounds = []
+        for _ in range(20):
+            s = c.compact_once()
+            rounds.append({k: s[k] for k in ("merged", "deferred_requests")})
+            if not s["merged"]:
+                break
+        remote = c.compactor_stats()["remote"]
+        budget = remote.pop("budget", None)
+        got, files = published(pkg, fs)
+        w = (pkg.Builder().broker(pkg.FakeBroker()).topic(TOPIC).proto_class(cls)
+             .target_dir("/w").filesystem(pkg.MemoryFileSystem())
+             .encoder_backend("cpu")
+             .compaction(1 << 20, **({"bandwidth_bytes_per_s": 1e6}
+                                     if tier != "requests"
+                                     else {"request_budget_per_round": 4}))
+             .build())
+        w.close()
+        return {"rounds": rounds, "remote": remote,
+                "budget": budget and (budget["budget_bytes_per_s"], budget["bytes_consumed"] > 0),
+                "rows": (len(got), total), "once": all(v == 1 for v in got.values()),
+                "files": files}
+
+    port, jax = both(scenario)
+    assert port == jax
+    assert port["once"] and port["rows"][0] == port["rows"][1]
+    assert len(port["rounds"]) > 2
+    if tier == "requests":
+        assert port["rounds"][0] == {"merged": 1, "deferred_requests": 3}
 
 
 def test_partition_compaction_canonical_names_registered():

@@ -412,3 +412,68 @@ def test_streaming_builder_on_the_card(card, threads):
     assert pack_pages.launches > before
     n = min(len(files["cuda"]), len(files["cpu"]))
     assert n >= 2 and files["cuda"][:n] == files["cpu"][:n]
+
+
+@pytest.mark.parametrize("n_shards", [1, 8])
+@pytest.mark.parametrize("bound", [None, 300, 1 << 13])
+def test_mesh_steps_card_equal_cpu(card, n_shards, bound):
+    """Both mesh steps over shards on one card equal the same calls over
+    CPU shards, ragged counts included; the bounded step launches the hist
+    and rank kernels once a shard."""
+    from kpw_tpu_torch.ops.rank import hist_dict, rank_pages
+    from kpw_tpu_torch.parallel.mesh import make_mesh
+    from kpw_tpu_torch.parallel.sharded import (sharded_encode_step,
+                                                sharded_encode_step_bounded)
+
+    rng = np.random.default_rng(n_shards + (bound or 0))
+    per = 1024
+    vals = rng.integers(0, bound or 100_000, (3, n_shards * per)).astype(np.int32)
+    counts = rng.integers(0, per + 1, n_shards)
+    counts[0] = per
+    lo = torch.from_numpy(vals)
+    outs = []
+    for dev in (card, "cpu"):
+        mesh = make_mesh(n_shards, device=dev)
+        if bound is None:
+            outs.append(sharded_encode_step(torch.zeros_like(lo), lo, counts, mesh=mesh,
+                                            cap=per, width=20, has_hi=False))
+        else:
+            before = (hist_dict.launches, rank_pages.launches)
+            outs.append(sharded_encode_step_bounded(lo, counts, mesh=mesh, width=16,
+                                                    value_bound=bound))
+            if dev is card:
+                assert (hist_dict.launches - before[0],
+                        rank_pages.launches - before[1]) == (n_shards, n_shards)
+    for g, w in zip(*outs):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_mesh_encoder_card_equals_cpu_encoder(card):
+    """MeshChunkEncoder over 8 shards on one card writes the CpuChunkEncoder
+    file, with the bounded, gather and string routes all taken."""
+    from kpw_tpu_torch.core import (ParquetFileWriter, Schema, WriterProperties,
+                                    columns_from_arrays, leaf)
+    from kpw_tpu_torch.core.pages import CpuChunkEncoder
+    from kpw_tpu_torch.parallel.mesh import make_mesh
+    from kpw_tpu_torch.parallel.mesh_encoder import MeshChunkEncoder
+
+    rng = np.random.default_rng(11)
+    n = 40_000
+    schema = Schema([leaf("a", "int64"), leaf("b", "int32"), leaf("f", "double"),
+                     leaf("s", "string")])
+    arrays = {"a": rng.integers(0, 5000, n).astype(np.int64),
+              "b": rng.integers(-7, 7, n).astype(np.int32),
+              "f": rng.integers(0, 30, n) / 4.0,
+              "s": [b"tag_%d" % (i % 9) for i in range(n)]}
+    props = WriterProperties()
+    files = []
+    menc = MeshChunkEncoder(props.encoder_options(), mesh=make_mesh(8))
+    for enc in (menc, CpuChunkEncoder(props.encoder_options())):
+        buf = io.BytesIO()
+        w = ParquetFileWriter(buf, schema, props, encoder=enc)
+        w.write_batch(columns_from_arrays(schema, arrays))
+        w.close()
+        files.append(buf.getvalue())
+    assert files[0] == files[1]
+    assert {e["route"] for e in menc.route_log} == {"bounded-psum", "two-phase-gather"}
+    assert menc.string_stats["columns"] == 1

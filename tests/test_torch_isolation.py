@@ -36,7 +36,10 @@ from kpw_tpu_torch.entry import entry
 from kpw_tpu_torch import native
 from kpw_tpu_torch.native import build as native_build
 from kpw_tpu_torch.ops import _build, backend, bitpack, delta, dictionary, rank, strings
-from kpw_tpu_torch.parallel.sharded import encode_step_single
+from kpw_tpu_torch.parallel import mesh
+from kpw_tpu_torch.parallel.mesh_encoder import MeshChunkEncoder
+from kpw_tpu_torch.parallel.sharded import (encode_step_single, sharded_encode_step,
+                                            sharded_encode_step_bounded)
 
 # Small inputs: more intra-op threads would only contend for the CPU
 # with the suite's other test workers.
@@ -102,7 +105,11 @@ def test_port_imports_without_jax_or_kpw_tpu():
                 "kpw_tpu_torch.runtime.parquet_file", "kpw_tpu_torch.runtime.select",
                 "kpw_tpu_torch.runtime.writer", "kpw_tpu_torch.runtime.builder",
                 "kpw_tpu_torch.runtime.procworkers", "kpw_tpu_torch.runtime.multiwriter",
-                "kpw_tpu_torch.io.compact"):
+                "kpw_tpu_torch.io.compact", "kpw_tpu_torch.parallel.mesh",
+                "kpw_tpu_torch.parallel.dict_merge", "kpw_tpu_torch.parallel.mesh_encoder",
+                "kpw_tpu_torch.io.objectstore", "kpw_tpu_torch.io.failover",
+                "kpw_tpu_torch.io.faults", "kpw_tpu_torch.io.hdfs",
+                "kpw_tpu_torch.ingest.faults", "kpw_tpu_torch.ingest.kafka_client"):
         assert mod in names.split()
 
 
@@ -224,8 +231,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         entry(device="cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         strings.device_string_dictionary(T.bytecol.ByteColumn.from_list([b"a"]))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mesh.make_mesh(8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MeshChunkEncoder(opts)
     # explicit CPU is the only way onto the CPU
     backend.CudaChunkEncoder(opts, device="cpu")
+    MeshChunkEncoder(opts, device="cpu")
     entry(device="cpu")
     strings.device_string_dictionary(T.bytecol.ByteColumn.from_list([b"a"]),
                                      device="cpu")
@@ -418,6 +430,10 @@ def test_cpu_tensors_launch_no_kernel(monkeypatch):
     encode_step_single(lo, 1000, value_bound=300)  # bounded route
     encode_step_single(lo, torch.tensor(1000), value_bound=300)
     encode_step_single(lo, 1000)  # sort route
+    cpu8 = mesh.make_mesh(8, device="cpu")  # the mesh steps over CPU shards
+    counts = np.full(8, 128)
+    sharded_encode_step(torch.zeros_like(lo), lo, counts, mesh=cpu8, cap=128)
+    sharded_encode_step_bounded(lo, counts, mesh=cpu8, value_bound=300)
     rank.hist_pages(lo, 8)
     bitpack.bitpack_pages(lo, 9)
     schema = T.Schema([T.leaf("a", "int64"), T.leaf("b", "double")])

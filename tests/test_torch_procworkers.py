@@ -777,7 +777,25 @@ def test_partitions_lost_abandons_across_process_boundary(backend, tmp_path):
                 _committed(broker, parts) >= n
                 and surv.ack_lag()["unacked_records"] == 0))
             out["expired"] = broker.group_stats("g", TOPIC)["expired_members"]
-            victim.consumer.suspend(False)
+            # on rejoin the victim posts two fence descriptors to its child,
+            # the revoke's flush and then the loss's abandon; the child
+            # serves them once its queue is empty, the abandon superseding
+            # the flush.  The child is held stopped until both are in its
+            # queue: otherwise a loaded machine can let it serve the flush
+            # alone (the file publishes, its commit comes back fenced, it
+            # is un-published, and no abandon crosses the boundary)
+            slot = victim._procpool.slots[0]
+            os.kill(slot.pid, signal.SIGSTOP)
+            try:
+                victim.consumer.suspend(False)
+                out["abandon_sent"] = wait_until(lambda: any(
+                    e["kind"] == "rebalance_fence_sent" and e["mode"] == "abandon"
+                    for e in victim._flightrec.events()))
+                # the queue's feeder thread has written both into the pipe
+                wait_until(lambda: not slot.work_q._buffer)
+                time.sleep(0.1)
+            finally:
+                os.kill(slot.pid, signal.SIGCONT)
             out["abandoned"] = wait_until(lambda: victim._fence_abandons.count >= 1)
             out["kinds"] = sorted(_kinds(victim) & {
                 "rebalance_partitions_lost", "rebalance_child_abandoned"})

@@ -306,10 +306,13 @@ def test_poison_pill_policies(backend):
 
 @pytest.mark.parametrize("backend", sorted(BACKENDS))
 def test_builder_validation(backend, monkeypatch):
-    """The reference's validation, on both packages; and on the port, the
-    options still to port raise NotImplementedError at build() (naming the
-    module), the ported process workers, compaction and routes build, and
-    the card backends raise there without a card."""
+    """The reference's validation, on both packages; the options whose
+    modules came last (the object store and compaction's budgets build;
+    ``consumer_config`` without a broker and an ``hdfs://`` default FS
+    raise the JAX package's errors here, where neither kafka-python nor
+    libhdfs is installed; ``"mesh"`` builds on the CPU); process workers,
+    compaction and routes build; and the card backends raise without a
+    card."""
     cls = sample_message_class()
     for pkg in (P, J):
         broker = pkg.FakeBroker()
@@ -328,43 +331,60 @@ def test_builder_validation(backend, monkeypatch):
         b = base()
         b.build()
         assert b._offset_tracker_max_open_pages == 900
-    broker = P.FakeBroker()
-    for setter, args, kwargs, module in (
-            ("object_store", (object(), "b"), {}, "io/objectstore.py"),
-            ("compaction", (1 << 20,), {"bandwidth_bytes_per_s": 1e6},
-             "io/objectstore.py"),
-            ("compaction", (1 << 20,), {"request_budget_per_round": 4},
-             "io/objectstore.py"),
-            ("consumer_config", ({"bootstrap.servers": "localhost:1"},), {},
-             "ingest/kafka_client.py")):
-        b = make_builder(P, broker, P.MemoryFileSystem(), cls, backend)
-        if setter == "consumer_config":
-            b._broker = None
+
+    def built(pkg, setter, *args, **kwargs):
+        """The writer's sink type, or the error's type and text with the
+        package's name made the same."""
+        b = make_builder(pkg, pkg.FakeBroker(), pkg.MemoryFileSystem(), cls, backend)
+        if setter in ("consumer_config", "filesystem_config"):
+            b._broker = None if setter == "consumer_config" else b._broker
+            b._filesystem = None if setter == "filesystem_config" else b._filesystem
         getattr(b, setter)(*args, **kwargs)
-        with pytest.raises(NotImplementedError, match=module):
-            b.build()
-    # process workers, compaction and routes are ported: they build
+        try:
+            w = b.build()
+        except (ImportError, RuntimeError) as e:
+            # the package's own text (an underlying library's follows a colon)
+            return (type(e).__name__,
+                    str(e).replace("kpw_tpu_torch", "kpw_tpu").split(":")[0])
+        w.close()
+        return type(w.fs).__name__
+    for setter, args, kwargs, want in (
+            ("object_store", ("b",), {}, "ObjectStoreFileSystem"),
+            ("compaction", (1 << 20,), {"bandwidth_bytes_per_s": 1e6},
+             "MemoryFileSystem"),
+            ("compaction", (1 << 20,), {"request_budget_per_round": 4},
+             "MemoryFileSystem"),
+            ("consumer_config", ({"bootstrap.servers": "localhost:1"},), {},
+             "ImportError"),
+            ("filesystem_config", ({"fs.defaultFS": "hdfs://nn:8020"},), {},
+             "RuntimeError")):
+        got = {}
+        for pkg in (P, J):
+            a = ((pkg.EmulatedObjectStore(),) + args if setter == "object_store"
+                 else args)
+            got[pkg] = built(pkg, setter, *a, **kwargs)
+        assert got[P] == got[J]
+        assert (got[P] if isinstance(got[P], str) else got[P][0]) == want
+    # process workers, compaction, routes and the mesh are ported: they build
+    broker = P.FakeBroker()
     assert isinstance(make_builder(P, broker, P.MemoryFileSystem(), cls, backend)
                       .route("t2", cls, "/t2").build(), P.MultiWriter)
     make_builder(P, broker, P.MemoryFileSystem(), cls, backend).compaction(1 << 20).build()
     with pytest.raises(ValueError, match="LocalFileSystem"):
         make_builder(P, broker, P.MemoryFileSystem(), cls, backend) \
             .process_workers(2).build()
-    b = make_builder(P, broker, None, cls, backend)
-    b._filesystem = None
-    b.filesystem_config({"fs.defaultFS": "hdfs://nn:8020"})
-    with pytest.raises(NotImplementedError, match="io/hdfs.py"):
-        b.build()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        make_builder(P, broker, P.MemoryFileSystem(), cls, backend) \
-            .encoder_backend("mesh").build()
+    with pytest.raises(ValueError, match="object-store"):
+        make_builder(P, broker, None, cls, backend).object_store(
+            P.EmulatedObjectStore()).process_workers(2).build()
+    make_builder(P, broker, P.MemoryFileSystem(), cls, backend) \
+        .encoder_backend("mesh", device="cpu").build().close()
     # the default backend is the card's: without one, build() raises
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for be in ("cuda", "auto"):
+    for be in ("cuda", "auto", "mesh"):
         b = (P.Builder().broker(broker).topic(TOPIC).proto_class(cls)
              .target_dir("/x").filesystem(P.MemoryFileSystem()))
-        if be == "auto":
-            b.encoder_backend("auto")
+        if be != "cuda":
+            b.encoder_backend(be)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             b.build()
 

@@ -16,6 +16,7 @@ import kpw_tpu_torch.core as T
 from kpw_tpu_torch.core.pages import CpuChunkEncoder
 from kpw_tpu_torch.native.encoder import NativeChunkEncoder
 from kpw_tpu_torch.ops.backend import CudaChunkEncoder
+from kpw_tpu_torch.parallel.mesh_encoder import MeshChunkEncoder
 from kpw_tpu_torch.runtime import select as S
 
 torch.set_num_threads(1)
@@ -35,10 +36,9 @@ def test_backend_names():
     opts = T.WriterProperties().encoder_options()
     assert type(S.make_encoder(opts, "native")) is NativeChunkEncoder
     assert type(S.make_encoder(opts, "cpu")) is CpuChunkEncoder
-    with pytest.raises(NotImplementedError, match="mesh"):
-        S.make_encoder(opts, "mesh")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        S.check_backend("mesh")
+    # "mesh" is no member of "auto"'s choice, but a backend of its own
+    assert type(S.make_encoder(opts, "mesh", device="cpu")) is MeshChunkEncoder
+    assert S.check_backend("mesh", device="cpu") == "mesh"
     for bad in ("tpu", "gpu", ""):
         with pytest.raises(ValueError, match="unknown encoder backend"):
             S.check_backend(bad)
@@ -49,7 +49,7 @@ def test_backend_names():
 def test_card_backends_raise_without_a_card(monkeypatch, fresh_caches):
     _no_cuda(monkeypatch)
     opts = T.WriterProperties().encoder_options()
-    for backend in ("cuda", "auto"):
+    for backend in ("cuda", "auto", "mesh"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             S.check_backend(backend)
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -63,3 +63,24 @@ def test_stream_phase():
                 "delta": delta_page_streams}
     launches = chip_smoke.phase_stream(torch, counters, small=True, device="cpu")
     assert launches == dict.fromkeys(counters, 0)
+
+
+def test_mesh_phase():
+    """The mesh phase at its rehearsal size on 8 CPU shards: config 4's
+    step on both routes equal to the numpy oracle and to itself, the
+    writer route's file equal to ``CpuChunkEncoder``'s with the expected
+    routes, and the recorded hist / rank inputs replayed against the plain
+    versions; CPU tensors launch no kernel."""
+    from kpw_tpu_torch.ops.bitpack import pack_pages
+    from kpw_tpu_torch.ops.delta import delta_page_streams
+    from kpw_tpu_torch.ops.rank import hist_dict, rank_pages
+
+    counters = {"bitpack": pack_pages, "hist": hist_dict, "rank": rank_pages,
+                "delta": delta_page_streams}
+    before = {k: f.launches for k, f in counters.items()}
+    out = chip_smoke.mesh_path(torch, counters, small=True, device="cpu")
+    # one hist and one rank call a shard of each bounded step
+    assert len(out["recorded"]["hist_pages"]) == len(out["recorded"]["rank_pages"]) == \
+        chip_smoke.CFG4_SHARDS + 1 + 2 * chip_smoke.CFG4_GROUPS * chip_smoke.CFG4_SHARDS
+    assert chip_smoke.check_mesh_inputs(torch, out["recorded"]) == {"hist": 0, "rank": 0}
+    assert {k: f.launches for k, f in counters.items()} == before

@@ -28,7 +28,6 @@ import torch
 
 import kpw_tpu as J
 import kpw_tpu_torch as P
-from kpw_tpu.io import FaultInjectingFileSystem, FaultSchedule
 from kpw_tpu_torch.utils import lockcheck as p_lockcheck
 from kpw_tpu_torch.utils import schedcheck as p_schedcheck
 from proto_helpers import _F, _field, build_classes, sample_message_class
@@ -338,10 +337,10 @@ def test_sink_fault_pauses_offending_route_alone_then_recovers():
         for t in ("sick", "well"):
             broker.create_topic(t, PARTS)
             produce(broker, t, cls, 3000)
-        sched = FaultSchedule(seed=3).recover_after("write", nth=6, err=errno.ENOSPC)
+        sched = pkg.FaultSchedule(seed=3).recover_after("write", nth=6, err=errno.ENOSPC)
         mw = (base_builder(pkg, broker, pkg.MemoryFileSystem(), backend)
               .route("sick", cls, "/fd/sick",
-                     filesystem=FaultInjectingFileSystem(pkg.MemoryFileSystem(), sched),
+                     filesystem=pkg.FaultInjectingFileSystem(pkg.MemoryFileSystem(), sched),
                      degraded_mode={"flag": True, "probe_interval_seconds": 0.05,
                                     "probe_backoff_max_seconds": 0.2})
               .route("well", cls, "/fd/well", filesystem=pkg.MemoryFileSystem(),
@@ -574,12 +573,28 @@ def test_shared_compaction_service_compacts_every_route():
 
 
 def test_shared_bandwidth_budget_raises_naming_objectstore():
-    """One bandwidth bucket for every route's merge traffic is
-    ``io/objectstore.py``'s: the port raises at ``build()``, naming it."""
-    cls = sample_message_class()
-    broker = P.FakeBroker()
-    mw = (base_builder(P, broker, P.MemoryFileSystem(), "cpu")
-          .route("ca", cls, "/cp/ca", compaction={"target_size": 1 << 20,
-                                                  "bandwidth_bytes_per_s": 1e6}))
-    with pytest.raises(NotImplementedError, match="io/objectstore.py"):
-        mw.build()
+    """One bandwidth bucket (``io/objectstore.py``'s ``BandwidthBudget``)
+    for every route's merge traffic: on both packages the first route
+    naming ``bandwidth_bytes_per_s`` sets it and every route's compactor
+    draws from that one object.  The name is the one the test had when it
+    asserted the ``NotImplementedError`` the port raised before
+    ``io/objectstore.py`` was ported: it now asserts the opposite."""
+    def scenario(pkg, backend):
+        cls = sample_message_class()
+        mw = base_builder(pkg, pkg.FakeBroker(), pkg.MemoryFileSystem(), backend)
+        for t, cfg in (("ca", {"bandwidth_bytes_per_s": 2e6}), ("cb", {})):
+            mw.route(t, cls, f"/cp/{t}", compaction={"target_size": 1 << 20, **cfg})
+        mw = mw.build()
+        try:
+            comps = mw._compaction_svc._compactors
+            budgets = {name: c._budget for name, c in comps.items()}
+            return {"shared": len({id(b) for b in budgets.values()}) == 1,
+                    "rates": sorted((t, b.rate) for t, b in budgets.items()),
+                    "remote": {t: c.compactor_stats()["remote"]["bandwidth_bytes_per_s"]
+                               for t, c in comps.items()}}
+        finally:
+            mw.close()
+
+    port, jax = both(scenario, "cpu")
+    assert port == jax
+    assert port["shared"] and port["rates"] == [("ca", 2e6), ("cb", 2e6)]
