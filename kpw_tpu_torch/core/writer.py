@@ -11,6 +11,7 @@ KafkaProtoParquetWriter.java:473).
 from __future__ import annotations
 
 import io
+import itertools
 import json
 import os
 import queue
@@ -25,7 +26,11 @@ from .index import serialize_column_index, serialize_offset_index
 from .metadata import (ColumnChunk, FileMetaData, RowGroup, SortingColumn)
 from .pages import ColumnChunkData, CpuChunkEncoder, EncoderOptions
 from .schema import PhysicalType, Schema
-from ..utils.tracing import stage
+from ..utils.tracing import count_transfers, get_span_recorder, record_span, stage
+
+# numbers each writer of the process, for the ``rg`` attribute that ties a
+# row group's spans together across the pipeline's threads
+_writer_seq = itertools.count()
 
 MAGIC = b"PAR1"
 
@@ -260,6 +265,9 @@ class ParquetFileWriter:
         # read approximately — the overlap evidence the bench breakdown
         # and the runtime metrics surface without a global tracer
         self.stage_busy_s = {"dispatch": 0.0, "assemble": 0.0, "io": 0.0}
+        # row groups detached so far (on the sync path: written)
+        self._seq = next(_writer_seq)
+        self._rg_detached = 0
         self._write(MAGIC)
 
     def _resolve_sorting(self, spec) -> list[SortingColumn]:
@@ -415,15 +423,16 @@ class ParquetFileWriter:
         self._pending_rows += batch.num_rows
         self._pending_bytes += batch.estimated_bytes()
 
-    def maybe_flush_row_group(self) -> None:
+    def maybe_flush_row_group(self) -> int:
         """Flush iff the pending bytes crossed row_group_size (idempotent,
         retry-safe).  In pipeline mode the flush is handed to the encode/IO
-        threads and this returns as soon as the detach is queued."""
+        threads and this returns as soon as the detach is queued.  Returns
+        the rows flushed, 0 when none."""
         if self._pending_bytes >= self.properties.row_group_size:
             if self._pipeline:
-                self._launch_flush()
-            else:
-                self.flush_row_group()
+                return self._launch_flush()
+            return self.flush_row_group()
+        return 0
 
     # -- pipelined flush ---------------------------------------------------
     def _check_pipe_error(self) -> None:
@@ -458,27 +467,45 @@ class ParquetFileWriter:
         self._enc_thread.start()
         self._io_thread.start()
 
-    def _launch_flush(self) -> None:
+    def _trace_detach(self):
+        """(rg, detach time) for the row group being detached, while a
+        span recorder is installed, else None.  ``rg`` is
+        ``"<writer seq>:<ordinal>"``, the attribute every span of the row
+        group carries; the time starts its ``rowgroup.latency`` span."""
+        if get_span_recorder() is None:
+            return None
+        return f"{self._seq}:{self._rg_detached}", time.perf_counter()
+
+    def _launch_flush(self) -> int:
         """Detach the pending row group and queue it for encode+IO.  Blocks
-        (bounded queue) when two row groups are already in flight."""
+        (bounded queue) when two row groups are already in flight.  Returns
+        the rows detached, 0 when nothing was pending."""
         self._check_pipe_error()
         if not self._pending or self._pending_rows == 0:
-            return
+            return 0
         self._ensure_pipe()
+        tr = self._trace_detach()
         parts, rows = self._pending, self._pending_rows
         est = self._pending_bytes
         self._pending = None
         self._pending_rows = 0
         self._pending_bytes = 0
+        self._rg_detached += 1
         with self._inflight_lock:
             self._inflight_bytes += est
-        self._enc_q.put((parts, rows, est))
+        self._enc_q.put((parts, rows, est, tr))
+        return rows
 
-    def _encode_chunks(self, chunks: list[ColumnChunkData]):
+    def _merge_all(self, parts, rg) -> list[ColumnChunkData]:
+        with stage("rowgroup.merge", rg=rg):
+            return [self._merge_chunks(p) for p in parts]
+
+    def _encode_chunks(self, chunks: list[ColumnChunkData], rg=None):
         """Encode merged chunks at base offset 0 (absolute offsets are
         assigned at commit time) — shared by the sync and pipelined paths."""
         with stage("rowgroup.encode",
-                   rows=chunks[0].num_rows if chunks else 0):
+                   rows=chunks[0].num_rows if chunks else 0,
+                   rg=rg) as span, count_transfers(span):
             if hasattr(self.encoder, "encode_many"):
                 return self.encoder.encode_many(chunks, 0)
             encoded, off = [], 0
@@ -525,20 +552,22 @@ class ParquetFileWriter:
                 return
             if self._abandoned.is_set() or self._pipe_error is not None:
                 continue  # drain without work (abandoned or poisoned)
-            parts, rows, est = item
+            parts, rows, est, tr = item
+            rg = tr and tr[0]
             try:
                 t0 = time.perf_counter()
-                chunks = [self._merge_chunks(p) for p in parts]
+                chunks = self._merge_all(parts, rg)
                 if self._asm_q is not None:
-                    with stage("rowgroup.launch", rows=rows):
+                    with stage("rowgroup.launch", rows=rows,
+                               rg=rg) as span, count_transfers(span):
                         prepared = self.encoder.launch_many(chunks)
                     self.stage_busy_s["dispatch"] += time.perf_counter() - t0
-                    self._asm_q.put((chunks, prepared, rows, est))
+                    self._asm_q.put((chunks, prepared, rows, est, tr))
                 else:
-                    encoded = self._encode_chunks(chunks)
+                    encoded = self._encode_chunks(chunks, rg)
                     enc_len = self._mark_encoded(encoded, est)
                     self.stage_busy_s["dispatch"] += time.perf_counter() - t0
-                    self._io_q.put((encoded, rows, enc_len))
+                    self._io_q.put((encoded, rows, enc_len, tr))
             except BaseException as e:  # noqa: BLE001 - poisons the writer
                 self._pipe_error = e
                 with self._inflight_lock:
@@ -564,14 +593,15 @@ class ParquetFileWriter:
                 return
             if self._abandoned.is_set() or self._pipe_error is not None:
                 continue  # drain without work (abandoned or poisoned)
-            chunks, prepared, rows, est = item
+            chunks, prepared, rows, est, tr = item
             try:
                 t0 = time.perf_counter()
-                with stage("rowgroup.assemble", rows=rows):
+                with stage("rowgroup.assemble", rows=rows,
+                           rg=tr and tr[0]) as span, count_transfers(span):
                     encoded = self.encoder.assemble_many(chunks, prepared, 0)
                 enc_len = self._mark_encoded(encoded, est)
                 self.stage_busy_s["assemble"] += time.perf_counter() - t0
-                self._io_q.put((encoded, rows, enc_len))
+                self._io_q.put((encoded, rows, enc_len, tr))
             except BaseException as e:  # noqa: BLE001 - poisons the writer
                 self._pipe_error = e
                 with self._inflight_lock:
@@ -593,7 +623,7 @@ class ParquetFileWriter:
                 return
             if self._abandoned.is_set():
                 continue
-            encoded, rows, enc_len = item
+            encoded, rows, enc_len, tr = item
             sleep = None
             attempt = 0
             started = time.monotonic()
@@ -613,8 +643,12 @@ class ParquetFileWriter:
                     # row group's exact encoded size into the ratio EWMA
                     # (one stage earlier than a commit-time update — the
                     # deeper pipeline must not delay ratio learning)
-                    self._commit_encoded(encoded, rows)
-                    self.stage_busy_s["io"] += time.perf_counter() - t0
+                    self._commit_encoded(encoded, rows, rg=tr and tr[0])
+                    t1 = time.perf_counter()
+                    self.stage_busy_s["io"] += t1 - t0
+                    if tr is not None:
+                        record_span("rowgroup.latency", tr[1], t1,
+                                    rg=tr[0], rows=rows)
                     break
                 except OSError as e:
                     if hb is not None:
@@ -667,7 +701,7 @@ class ParquetFileWriter:
         return actual
 
     def _commit_encoded(self, encoded_chunks, num_rows: int,
-                        raw_estimate: int = 0) -> None:
+                        raw_estimate: int = 0, rg=None) -> None:
         """Write encoded-at-offset-0 chunks at the current position and
         record the row group.  Raises before any state change on IO failure
         (the positioned _write seeks back on retry).  ``raw_estimate`` is the
@@ -684,7 +718,7 @@ class ParquetFileWriter:
             total_byte_size += m.total_uncompressed_size
             total_compressed += m.total_compressed_size
         with stage("rowgroup.io_write", rowgroup=len(self._row_groups),
-                   rows=num_rows):
+                   rows=num_rows, rg=rg):
             # one seek, then a writev-style gather of every chunk's page
             # buffers: the page bytes go from the encoder's parts straight
             # into the sink — no per-chunk blob join, no whole-row-group
@@ -755,8 +789,9 @@ class ParquetFileWriter:
             self._enc_thread = self._asm_thread = self._io_thread = None
         self._closed = True
 
-    def write_batch(self, batch: ColumnBatch) -> None:
+    def write_batch(self, batch: ColumnBatch) -> int:
         """Append a batch; flushes a row group when the threshold crosses.
+        Returns the rows flushed, 0 when none.
 
         Ownership contract: the batch is owned by the writer as soon as this
         is called — the append itself cannot fail.  If the internal flush
@@ -764,7 +799,7 @@ class ParquetFileWriter:
         :meth:`flush_row_group` (or just :meth:`close`), do NOT re-submit the
         batch."""
         self.append_batch(batch)
-        self.maybe_flush_row_group()
+        return self.maybe_flush_row_group()
 
     @staticmethod
     def _merge_chunks(parts: list[ColumnChunkData]) -> ColumnChunkData:
@@ -799,23 +834,31 @@ class ParquetFileWriter:
             num_rows=sum(p.num_rows for p in parts),
         )
 
-    def flush_row_group(self) -> None:
+    def flush_row_group(self) -> int:
         """Transactional: encode everything, then write, and only then mutate
         writer state — so a transient IO failure leaves ``_pending`` intact
         and a retried flush re-encodes and overwrites (no dropped rows, no
         desynced offsets).  Same encode-at-0 + commit path the pipeline
-        threads use (one bookkeeping implementation, byte-identical)."""
+        threads use (one bookkeeping implementation, byte-identical).
+        Returns the rows written, 0 when nothing was pending."""
         if not self._pending or self._pending_rows == 0:
-            return
-        chunks = [self._merge_chunks(parts) for parts in self._pending]
+            return 0
+        tr = self._trace_detach()
+        rg = tr and tr[0]
+        chunks = self._merge_all(self._pending, rg)
         num_rows = self._pending_rows
-        encoded_chunks = self._encode_chunks(chunks)
+        encoded_chunks = self._encode_chunks(chunks, rg)
         # raises => retry safe (state mutates only after a successful write)
         self._commit_encoded(encoded_chunks, num_rows,
-                             raw_estimate=self._pending_bytes)
+                             raw_estimate=self._pending_bytes, rg=rg)
         self._pending = None
         self._pending_rows = 0
         self._pending_bytes = 0
+        self._rg_detached += 1
+        if tr is not None:
+            record_span("rowgroup.latency", tr[1], time.perf_counter(),
+                        rg=rg, rows=num_rows)
+        return num_rows
 
     def _write_index_sections(self) -> None:
         """Query-ready footer sections (core/index.py), laid out between

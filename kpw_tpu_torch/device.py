@@ -9,7 +9,10 @@ kernel (or the call raises), a CPU tensor to the op's plain PyTorch version.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from .utils.tracing import transfer_counts
 
 
 def resolve_device(device) -> torch.device:
@@ -39,9 +42,30 @@ def count_args(count, limit: int, device) -> tuple:
     tensor stays on the device and travels by pointer (no host sync); an
     int travels by value."""
     if isinstance(count, torch.Tensor):
-        c = count.to(device=device, dtype=torch.int32).reshape(1)
+        c = to_device(count.to(torch.int32), device).reshape(1)
         return c, c.data_ptr(), 0
     return None, None, max(0, min(int(count), limit))
+
+
+def _count(counts: dict, way: str, nbytes: int, pinned: bool) -> None:
+    """Add one copy to the counts of ``utils.tracing.count_transfers``:
+    ``h2d_bytes`` / ``d2h_bytes``, and the pinned part of each apart."""
+    counts[f"{way}_bytes"] = counts.get(f"{way}_bytes", 0) + nbytes
+    if pinned:
+        key = f"{way}_pinned_bytes"
+        counts[key] = counts.get(key, 0) + nbytes
+
+
+def to_device(array, device, non_blocking: bool = False) -> torch.Tensor:
+    """A host array (numpy or a CPU tensor) as a tensor on ``device``: the
+    one way host data goes to the card, so that each upload is counted.
+    On the CPU the tensor shares the array's memory."""
+    t = torch.from_numpy(array) if isinstance(array, np.ndarray) else array
+    out = t.to(device, non_blocking=non_blocking)
+    counts = transfer_counts()
+    if counts is not None and out.is_cuda and not t.is_cuda:
+        _count(counts, "h2d", t.numel() * t.element_size(), t.is_pinned())
+    return out
 
 
 def to_host(tensors: list) -> list:
@@ -53,4 +77,9 @@ def to_host(tensors: list) -> list:
         return [t.numpy() for t in tensors]
     host = [t.to("cpu", non_blocking=True) for t in tensors]
     torch.cuda.current_stream(cuda[0].device).synchronize()
+    counts = transfer_counts()
+    if counts is not None:
+        for t, h in zip(tensors, host):
+            if t.is_cuda:
+                _count(counts, "d2h", h.numel() * h.element_size(), h.is_pinned())
     return [h.numpy() for h in host]

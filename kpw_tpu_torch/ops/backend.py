@@ -56,9 +56,9 @@ from ..core.bytecol import ByteColumn
 from ..core.pages import ColumnChunkData, EncoderOptions, PreparedRowGroup
 from ..core.schema import Encoding, PhysicalType
 from ..core.thrift import varint_bytes
-from ..device import resolve_device, to_host
+from ..device import resolve_device, to_device, to_host
 from ..native.encoder import NativeChunkEncoder
-from ..utils.tracing import stage
+from ..utils.tracing import stage, transfer_counts
 from .bss import byte_stream_split_device
 from .delta import (check_budget, delta_binary_packed_device, delta_bits_bucket,
                     delta_length_byte_array_device, delta_page_streams,
@@ -79,7 +79,8 @@ class _DeviceIndices:
 
     def host(self) -> np.ndarray:
         if self._host is None:
-            self._host = self.dev[: self.n].cpu().numpy().view(np.uint32)
+            (host,) = to_host([self.dev[: self.n]])
+            self._host = host.view(np.uint32)
         return self._host
 
     def __len__(self) -> int:
@@ -225,7 +226,7 @@ class _LevelPlanner:
         stacked = np.zeros((len(streams), max(map(len, streams))), np.uint8)
         for r, s in enumerate(streams):
             stacked[r, : len(s)] = s
-        self._dev = torch.from_numpy(stacked).to(encoder.device).to(torch.int32)
+        self._dev = to_device(stacked, encoder.device).to(torch.int32)
         # by width as well as bucket: rep and def streams differ in width
         by_key: dict[tuple[int, int], list] = {}
         for page in pages:
@@ -258,8 +259,8 @@ class _LevelPlanner:
                         (page, int(runs_h[r])))
             if fast:  # phase A already packed them: fetch only their rows
                 if len(fast) < len(rows):
-                    packed = packed[torch.as_tensor([r for r, _ in fast],
-                                                    device=packed.device)]
+                    packed = packed[to_device(
+                        np.array([r for r, _ in fast], np.int64), packed.device)]
                 self._b_groups.append(("fast", [p for _, p in fast], (packed,)))
         for bucket, entries in slow.items():
             run_bucket = pad_bucket(max(n for _, n in entries))
@@ -359,7 +360,7 @@ class _StringDictPlanner:
                            np.uint32)
         for r, (_, _, _, idx, _, _) in enumerate(self._items):
             stacked[r, : len(idx)] = idx
-        dev = torch.from_numpy(stacked.view(np.int32)).to(encoder.device)
+        dev = to_device(stacked.view(np.int32), encoder.device)
         by_key: dict[tuple[int, int], list] = {}
         for r, (_, _, _, _, width, pages) in enumerate(self._items):
             if width == 0:
@@ -475,7 +476,7 @@ class _DeltaPlanner:
                                    np.int32 if ring == 32 else np.int64)
                 for r, s in enumerate(rows):
                     stacked[r, : len(s)] = s
-                dev[ring] = torch.from_numpy(stacked).to(encoder.device)
+                dev[ring] = to_device(stacked, encoder.device)
         # the host-known value range of each stream bounds its miniblock
         # widths, and so the output a block needs
         row_bits = {(ring, r): delta_bits_bucket(
@@ -642,7 +643,16 @@ class CudaChunkEncoder(NativeChunkEncoder):
     def _launch_all(self, chunks, slots):
         """Phase A, sync 1, phase B and sync 2.  Returns None when nothing
         is device-eligible, else the argument pack for
-        :meth:`_assemble_bodies`."""
+        :meth:`_assemble_bodies`.  While a traced span counts transfers,
+        ``device_ms`` joins its counts: the stream's time from before the
+        first device operation to the end of sync 2, when the stream is
+        idle, so that the wait on the end event returns at once."""
+        counts = transfer_counts()
+        timing = None
+        if counts is not None and self.stream is not None:
+            timing = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            timing[0].record(self.stream)
         lvl = _LevelPlanner(self, chunks)  # phase A launched here
         dlt = _DeltaPlanner(self, chunks)  # delta pages launched here
         eligible = [
@@ -712,6 +722,12 @@ class CudaChunkEncoder(NativeChunkEncoder):
         sdp_dev = sdp.device_outputs()
         fetched = to_host(  # sync 2
             group_dev + tables_dev + lvl_dev + dlt_dev + sdp_dev)
+        if timing is not None:
+            # after sync 2 even when it read nothing back from the card
+            # (every dictionary rejected, no level, delta or string pages)
+            timing[1].record(self.stream)
+            timing[1].synchronize()
+            counts["device_ms"] = timing[0].elapsed_time(timing[1])
         groups_host = list(zip(fetched[0:len(group_dev):2],
                                fetched[1:len(group_dev):2]))
         at = len(group_dev)

@@ -25,7 +25,7 @@ import ctypes
 
 import torch
 
-from ..device import count_args, cuda_launch_args
+from ..device import count_args, cuda_launch_args, to_device
 from . import _build
 
 _fn = None
@@ -146,7 +146,7 @@ def window_slice(idx: torch.Tensor, table: torch.Tensor | None, bucket: int,
         first = torch.zeros_like(row)
         lim = bucket if count is None else count
         if isinstance(lim, torch.Tensor):
-            lim = lim.to(dev)
+            lim = to_device(lim, dev)
     else:
         t = table.to(torch.int64)
         row, first, lim = t[:, 0:1], t[:, 1:2], t[:, 2:3]

@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import resolve_device, to_host
+from ..device import resolve_device, to_device, to_host
 
 
 def byte_stream_split_device(values: np.ndarray, device="cuda") -> bytes:
@@ -27,6 +27,6 @@ def byte_stream_split_device(values: np.ndarray, device="cuda") -> bytes:
     n, width = len(v), v.dtype.itemsize
     if n == 0:
         return b""
-    flat = torch.from_numpy(v.view(np.uint8).reshape(n, width)).to(dev)
+    flat = to_device(v.view(np.uint8).reshape(n, width), dev)
     (planes,) = to_host([flat.t().contiguous()])
     return planes.tobytes()

@@ -30,7 +30,7 @@ import torch
 
 from ..core.bytecol import lens_and_payload
 from ..core.thrift import varint_bytes, zigzag
-from ..device import cuda_launch_args, resolve_device, to_host
+from ..device import cuda_launch_args, resolve_device, to_device, to_host
 from . import _build
 
 _BLOCK = 128
@@ -168,7 +168,7 @@ class DeltaLaunch:
         host = np.zeros(head + (meta.size + 1) // 2, np.int64)
         host[head:].view(np.int32)[:meta.size] = meta
         # CUDA copies a pageable source out before the call returns
-        self._buf = torch.from_numpy(host).to(streams.device, non_blocking=True)
+        self._buf = to_device(host, streams.device, non_blocking=True)
         self.out = torch.empty(capacity, dtype=torch.uint8, device=streams.device)
         self._spent = False
 
@@ -203,7 +203,7 @@ def _block_deltas(streams: torch.Tensor, tab: np.ndarray, bucket: int,
     dev = streams.device
     P, blocks = tab.shape[0], bucket // _BLOCK
     rows, ld = streams.shape
-    t = torch.from_numpy(tab).to(dev)
+    t = to_device(tab, dev)
     row, first, count = t[:, 0:1], t[:, 1:2], t[:, 2:3]
     col = first + torch.arange(bucket + 1, device=dev)
     if ld and rows:
@@ -235,7 +235,7 @@ def delta_page_streams_plain(streams: torch.Tensor, table, bit_size: int,
         zeros = torch.zeros(P + 2, dtype=torch.int64, device=dev)
         return out, zeros[:P + 1], zeros[P + 1:]
     d, valid = _block_deltas(streams, tab, blocks * _BLOCK, bit_size)
-    have = torch.from_numpy(np.diff(bstart)).to(dev)  # blocks a page holds
+    have = to_device(np.diff(bstart), dev)  # blocks a page holds
     held = torch.arange(blocks, device=dev) < have[:, None]  # (P, blocks)
     mins = torch.where(valid, d, torch.iinfo(torch.int64).max).min(-1).values
     mins = torch.where(held, mins, 0)
@@ -332,7 +332,7 @@ def delta_binary_packed_device(values: np.ndarray, bit_size: int = 64,
     # the host min/max bounds every miniblock width, and so the output
     max_bits = delta_bits_bucket(int(v.max()) - int(v.min()), bit_size)
     out, offsets, over = delta_page_streams(
-        torch.from_numpy(v).reshape(1, -1).to(dev), np.array([[0, 0, n]]),
+        to_device(v.reshape(1, -1), dev), np.array([[0, 0, n]]),
         bit_size, max_bits)
     out_h, off_h, over_h = to_host([out, offsets, over])
     check_budget(over_h, max_bits)

@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import to_device, to_host
 from .packing import pad_bucket
 
 _SIGN = -(1 << 63)  # XOR with the sign bit: unsigned 64-bit order -> signed
@@ -107,7 +108,7 @@ def split_keys(arr: np.ndarray) -> tuple[np.ndarray | None, np.ndarray]:
 
 def _upload(a: np.ndarray, device) -> torch.Tensor:
     """A uint32 host array to ``device`` as int32 bit patterns."""
-    return torch.from_numpy(a.view(np.int32)).to(device)
+    return to_device(a.view(np.int32), device)
 
 
 def _affine_offsets(arr: np.ndarray, base: int, stride: int) -> np.ndarray:
@@ -151,14 +152,14 @@ class BatchDictBuild:
     def unique_counts(self) -> np.ndarray:
         """Per-column unique counts; the first call syncs the batch."""
         if self._k_host is None:
-            self._k_host = self._k.cpu().numpy()
+            (self._k_host,) = to_host([self._k])
         return self._k_host
 
     def _key_table(self) -> np.ndarray:
         if self._keys_host is None:
             kmax = int(self.unique_counts().max()) if len(self.dtypes) else 0
-            self._keys_host = self.key_tables_device(
-                pad_bucket(max(kmax, 1))).cpu().numpy()
+            (self._keys_host,) = to_host([self.key_tables_device(
+                pad_bucket(max(kmax, 1)))])
         return self._keys_host
 
     def result(self, i: int) -> tuple[np.ndarray, torch.Tensor]:
@@ -212,14 +213,14 @@ class BinDictBuild:
 
     def unique_counts(self) -> np.ndarray:
         if self._k_host is None:
-            self._k_host = self._k.cpu().numpy()
+            (self._k_host,) = to_host([self._k])
         return self._k_host
 
     def _key_table(self) -> np.ndarray:
         if self._dkey_host is None:
             kmax = int(self.unique_counts().max()) if len(self.dtypes) else 0
-            self._dkey_host = self.key_tables_device(
-                pad_bucket(max(kmax, 1))).cpu().numpy()
+            (self._dkey_host,) = to_host([self.key_tables_device(
+                pad_bucket(max(kmax, 1)))])
         return self._dkey_host
 
     def result(self, i: int) -> tuple[np.ndarray, torch.Tensor]:

@@ -23,6 +23,7 @@ import math
 import numpy as np
 import torch
 
+from ..device import to_device, to_host
 from .bitpack import newrun, pack_pages, window_slice
 
 
@@ -49,7 +50,7 @@ def page_table(rows, starts, counts, device) -> torch.Tensor:
                       np.asarray(counts, np.int64)], axis=1).reshape(-1, 3)
     if table.size and (table.min() < 0 or table.max() > np.iinfo(np.int32).max):
         raise ValueError("page rows, starts and counts must be int32 and >= 0")
-    return torch.from_numpy(table.astype(np.int32)).to(device)
+    return to_device(table.astype(np.int32), device)
 
 
 def pack_pages_multi(idx_all: torch.Tensor, col_ids, starts, counts,
@@ -94,8 +95,9 @@ def pack_page_host(idx_full: torch.Tensor, start: int, count: int, width: int,
                    bucket: int) -> tuple[np.ndarray, int, bool]:
     """:func:`pack_page` brought to the host: (packed bytes ndarray,
     long_sum, any_long)."""
-    packed, long_sum, any_long = pack_page(idx_full, start, count, bucket, width)
-    return packed.cpu().numpy(), int(long_sum), bool(any_long)
+    packed, long_sum, _ = pack_page(idx_full, start, count, bucket, width)
+    packed_h, long_h = to_host([packed, long_sum])
+    return packed_h, int(long_h), bool(long_h > 0)
 
 
 def _pad_rows(idx_all: torch.Tensor, bucket: int) -> torch.Tensor:
@@ -112,8 +114,8 @@ def gather_index_slices(idx_all: torch.Tensor, col_ids, starts,
     the exact mixed RLE stream.  Returns (P, bucket) int32."""
     dev = idx_all.device
     pos = torch.arange(bucket, device=dev)
-    rows = torch.as_tensor(np.asarray(col_ids, np.int64), device=dev)
-    first = torch.as_tensor(np.asarray(starts, np.int64), device=dev)
+    rows = to_device(np.asarray(col_ids, np.int64), dev)
+    first = to_device(np.asarray(starts, np.int64), dev)
     return _pad_rows(idx_all, bucket)[rows[:, None], first[:, None] + pos]
 
 

@@ -28,7 +28,7 @@ import ctypes
 
 import torch
 
-from ..device import count_args, cuda_launch_args
+from ..device import count_args, cuda_launch_args, to_device
 from . import _build
 
 S_LO = 64  # lo radix; nhi = padded value bound / 64
@@ -127,7 +127,7 @@ def hist_dict_plain(lo: torch.Tensor, count, nhi: int,
     vb = nhi * S_LO
     ulo_cols = vb if ulo_cols is None else int(ulo_cols)
     if isinstance(count, torch.Tensor):
-        count = count.to(lo.device)
+        count = to_device(count, lo.device)
     valid = torch.arange(N, device=lo.device) < count
     counts = hist_pages_plain(torch.where(valid, lo, vb), nhi)
     rt, ulo, k = presence_to_dict(counts, nhi)

@@ -85,7 +85,7 @@ def device_string_dictionary(col: ByteColumn, max_k: int | None = None,
     resolution), and ``tiebreak_row_fraction``, the share of rows (len >= 8)
     that pay per-row host work in the tie-break.
     """
-    from ..device import resolve_device
+    from ..device import resolve_device, to_host
     from .dictionary import DictBuildHandle
 
     dev = resolve_device(device)
@@ -98,7 +98,8 @@ def device_string_dictionary(col: ByteColumn, max_k: int | None = None,
     handle = DictBuildHandle(keys, dev)
     kdict, kidx_dev = handle.result()
     # device batches pad rows to their bucket: trim to the real n
-    kidx = kidx_dev[:n].cpu().numpy().view(np.uint32)
+    (kidx,) = to_host([kidx_dev[:n]])
+    kidx = kidx.view(np.uint32)
     t2 = time.perf_counter()
     k_keys = len(kdict)
     lens = np.diff(col.offsets)

@@ -60,6 +60,8 @@ class ParquetFile:
         # still open.  Set by the worker at the rotation decision point;
         # feeds the rotation-cause meters and per-file observability
         self.rotation_reason: str | None = None
+        # the owning worker's number of this file, for its spans
+        self.seq = 0
 
     # -- reference API -----------------------------------------------------
     def write(self, record) -> None:
@@ -103,16 +105,19 @@ class ParquetFile:
         pending row-group flush."""
         self._flush_batch()
 
-    def maybe_flush_row_group(self) -> None:
-        """Idempotent, retry-safe row-group flush for the fast path."""
-        self._writer.maybe_flush_row_group()
+    def maybe_flush_row_group(self) -> int:
+        """Idempotent, retry-safe row-group flush for the fast path.
+        Returns the rows it handed to the encode, 0 when none."""
+        return self._writer.maybe_flush_row_group()
 
-    def flush_if_full(self) -> None:
+    def flush_if_full(self) -> int:
         """Idempotent: encodes the pending batch when it crossed the
         threshold; safe to retry after transient IO failures (records are
-        never re-appended, see ParquetFileWriter.write_batch ownership)."""
+        never re-appended, see ParquetFileWriter.write_batch ownership).
+        Returns the rows of the row group it flushed, 0 when none."""
         if len(self._batch) >= self._batch_size:
-            self._flush_batch()
+            return self._flush_batch()
+        return 0
 
     def close(self) -> None:
         """Flush pages + footer.  File contents are durable in the sink after
@@ -213,10 +218,11 @@ class ParquetFile:
         return out
 
     # -- internals ---------------------------------------------------------
-    def _flush_batch(self) -> None:
+    def _flush_batch(self) -> int:
         if not self._batch:
-            return
+            return 0
         batch = self._columnarizer.columnarize(self._batch)
         self._batch = []
-        self._writer.write_batch(batch)
+        rows = self._writer.write_batch(batch)
         self._observe_record_bytes(batch)
+        return rows

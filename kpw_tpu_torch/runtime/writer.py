@@ -1368,6 +1368,7 @@ class _Worker:
         # commit frontier stalls behind them forever
         self._inflight_runs: list = []
         self._file_records = 0
+        self._file_seq = 0  # files this worker opened (the spans' ``file``)
         # encoded-bytes/record estimate carried across rotations so every
         # file (not just the first's successors) rotates tightly
         self._carry_est = 64.0
@@ -1629,58 +1630,54 @@ class _Worker:
         if (self.current_file is not None
                 and self._is_file_timed_out(self.current_file)):
             self._finalize_current_file("time")
-        # batch granularity follows the LIVE bytes/record estimate,
-        # not the static 64 B guess: small-record streams (nested
-        # cfg7-shaped, ~10 B/record encoded) were capped at 1/16 of
-        # the 64 B-based record count — 4-5x smaller batches than
-        # the size band needs, and per-batch shred/append overhead
-        # dominated the measured rate (VERDICT r3 next #8)
-        tuner = self.p.autotuner
-        if tuner is not None:
-            # autotuned poll sizing: this worker's own measured
-            # processing rate over the tuner's poll horizon, instead of
-            # the fixed batch_size constant
-            poll_batch_base = tuner.poll_batch(self._proc_rate)
-        poll_batch = min(poll_batch_base, _rotation_batch_cap(
-            b._max_file_size, max(8.0, self._carry_est)))
-        self._last_poll_batch = poll_batch
-        if use_batch:
-            items, runs = self.p.consumer.poll_many_batches(
-                self._poll_cap(poll_batch))
+        with stage("worker.poll", records=0) as span:
+            # batch granularity follows the LIVE bytes/record estimate,
+            # not the static 64 B guess: small-record streams (nested
+            # cfg7-shaped, ~10 B/record encoded) were capped at 1/16 of
+            # the 64 B-based record count — 4-5x smaller batches than
+            # the size band needs, and per-batch shred/append overhead
+            # dominated the measured rate (VERDICT r3 next #8)
+            tuner = self.p.autotuner
+            if tuner is not None:
+                # autotuned poll sizing: this worker's own measured
+                # processing rate over the tuner's poll horizon, instead
+                # of the fixed batch_size constant
+                poll_batch_base = tuner.poll_batch(self._proc_rate)
+            poll_batch = min(poll_batch_base, _rotation_batch_cap(
+                b._max_file_size, max(8.0, self._carry_est)))
+            self._last_poll_batch = poll_batch
+            if use_batch:
+                items, runs = self.p.consumer.poll_many_batches(
+                    self._poll_cap(poll_batch))
+            else:
+                items, runs = self.p.consumer.poll_many_runs(
+                    self._poll_cap(poll_batch))
             if not items:
                 time.sleep(0.001)
-                return
-            t0 = time.perf_counter()
-            # consumed from the queue: from here until these runs are
-            # folded into _written_runs (or individually acked) they
-            # are redeliverable only through held_runs()
-            self._inflight_runs = runs
-            if self._try_wire_items(items, runs):
-                self._inflight_runs = []
-                self._note_proc_rate(sum(c for _, _, c in runs), t0)
-                if self._is_file_full(self.current_file):
-                    self._finalize_current_file()
-                return
-            # wire fallback (a record the shredder could not prove clean):
-            # materialize Records and re-run the batch on the exact
-            # per-record path below, which owns the poison-pill policies
-            recs = [r for it in items
-                    for r in (it.to_records()
-                              if isinstance(it, RecordBatch) else it)]
-        else:
-            recs, runs = self.p.consumer.poll_many_runs(
-                self._poll_cap(poll_batch))
-            if not recs:
-                time.sleep(0.001)
-                return
-            t0 = time.perf_counter()
-            self._inflight_runs = runs
-            if use_wire and self._try_wire_items([recs], runs):
-                self._inflight_runs = []
-                self._note_proc_rate(len(recs), t0)
-                if self._is_file_full(self.current_file):
-                    self._finalize_current_file()
-                return
+            elif span is not None:
+                span["records"] = sum(c for _, _, c in runs)
+        if not items:
+            return
+        t0 = time.perf_counter()
+        # consumed from the queue: from here until these runs are folded
+        # into _written_runs (or individually acked) they are
+        # redeliverable only through held_runs()
+        self._inflight_runs = runs
+        # a batch poll's items are queue chunks, a record poll's records
+        if use_wire and self._try_wire_items(items if use_batch else [items],
+                                             runs):
+            self._inflight_runs = []
+            self._note_proc_rate(sum(c for _, _, c in runs), t0)
+            if self._is_file_full(self.current_file):
+                self._finalize_current_file()
+            return
+        # wire fallback (a record the shredder could not prove clean):
+        # materialize Records and re-run the batch on the exact per-record
+        # path below, which owns the poison-pill policies
+        recs = ([r for it in items
+                 for r in (it.to_records()
+                           if isinstance(it, RecordBatch) else it)]
+                if use_batch else items)
         parsed = []  # (record, message) — parsed in bulk so the
         # per-record loop overhead amortizes (design capacity is
         # 300k rec/s/instance, KPW.java:463)
@@ -1694,16 +1691,18 @@ class _Worker:
         if not parsed:
             self._inflight_runs = []  # every record was acked above
             return
-        if self.current_file is None:
-            self._open_file()
-        # append is pure memory; only the (idempotent) flush retries
-        self.current_file.append_records([m for _, m in parsed])
-        self._retry(self.current_file.flush_if_full, "flush")
-        self._note_written(r for r, _ in parsed)
-        self._inflight_runs = []
-        self.p._written_records.mark(len(parsed))
-        self.p._written_bytes.mark(nbytes)
-        self._file_records += len(parsed)
+        with stage("worker.append"):
+            if self.current_file is None:
+                self._open_file()
+            # append is pure memory; only the (idempotent) flush retries
+            self.current_file.append_records([m for _, m in parsed])
+        with stage("worker.handoff") as span:
+            self._flush(self.current_file.flush_if_full, span)
+            self._note_written(r for r, _ in parsed)
+            self._inflight_runs = []
+            self.p._written_records.mark(len(parsed))
+            self.p._written_bytes.mark(nbytes)
+            self._file_records += len(parsed)
         if self._is_file_full(self.current_file):
             self._finalize_current_file()
 
@@ -1852,7 +1851,7 @@ class _Worker:
             (self.p._rotated_time if reason == "time"
              else self.p._rotated_revoke if reason == "revoke"
              else self.p._rotated_size).mark()
-        self._rename_and_move(f.path, subdir=pkey)
+        self._rename_and_move(f.path, subdir=pkey, file=f.seq)
         self._fold_pipe_stats(f)
         del self._part_files[pkey]
         # ack strictly after durable publish (KPW.java:347-350),
@@ -2030,7 +2029,7 @@ class _Worker:
         nrecs = 0
         nbytes = 0
         try:
-            with stage("worker.shred"):
+            with stage("worker.shred") as span:
                 for it in items:
                     if isinstance(it, RecordBatch):
                         cb = col.columnarize_buffer(it.payload, it.offsets)
@@ -2040,22 +2039,36 @@ class _Worker:
                     nrecs += cb.num_rows
                     nbytes += (cb.wire_bytes if cb.wire_bytes is not None
                                else sum(len(r.value) for r in it))
+                if span is not None:
+                    span["records"] = nrecs
+                    span["bytes"] = nbytes
         except WireShredError:
             return False
-        if self.current_file is None:
-            self._open_file()
-        # row order: records a fallback batch left in the file's record
-        # buffer are OLDER than this batch — hand them to the writer first
-        self._retry(self.current_file.flush_buffered, "flush_buffered")
         with stage("worker.append"):
+            if self.current_file is None:
+                self._open_file()
+            # row order: records a fallback batch left in the file's
+            # record buffer are OLDER than this batch — hand them to the
+            # writer first
+            self._retry(self.current_file.flush_buffered, "flush_buffered")
             for cb in batches:
                 self.current_file.append_batch(cb)  # pure memory
-        self._retry(self.current_file.maybe_flush_row_group, "flush")
-        self._note_written_runs(runs)
-        self.p._written_records.mark(nrecs)
-        self.p._written_bytes.mark(nbytes)
-        self._file_records += nrecs
+        with stage("worker.handoff") as span:
+            self._flush(self.current_file.maybe_flush_row_group, span)
+            self._note_written_runs(runs)
+            self.p._written_records.mark(nrecs)
+            self.p._written_bytes.mark(nbytes)
+            self._file_records += nrecs
         return True
+
+    def _flush(self, flush, span) -> None:
+        """The row-group flush (retried), inside ``worker.handoff``: in
+        pipeline mode the detach and the put into the dispatch queue, which
+        blocks while the pipeline is full.  ``span`` (the handoff's attrs,
+        or None untraced) gets the ``rows`` it detached."""
+        rows = self._retry(flush, "flush")
+        if span is not None and rows:
+            span["rows"] = rows
 
     def _note_proc_rate(self, n: int, t0: float) -> None:
         """EWMA of this worker's shred+append processing rate (records/s,
@@ -2262,7 +2275,10 @@ class _Worker:
                 heartbeat=self.heartbeat,
             )
 
-        return self._retry(make, "open")
+        f = self._retry(make, "open")
+        self._file_seq += 1
+        f.seq = self._file_seq
+        return f
 
     def _open_file(self) -> None:
         self.current_file = self._open_new_file()
@@ -2277,20 +2293,29 @@ class _Worker:
         """Close (flush+footer) -> rename/publish -> ack.  Order is the
         correctness protocol (KPW.java:325-351).  ``reason`` records why
         the file rotated ("size" | "time") for the rotation-cause
-        meters."""
+        meters.  Spanned whole as ``worker.rotate``, rotate to commit."""
         f = self.current_file
         if f is None:
             return
+        with stage("worker.rotate", file=f.seq, reason=reason,
+                   records=f.get_num_written_records()) as span:
+            self._rotate(f, reason, span)
+
+    def _close_file(self, f: ParquetFile) -> None:
+        with stage("worker.close", file=f.seq):
+            self._retry(f.close, "close")
+
+    def _rotate(self, f: ParquetFile, reason: str, span) -> None:
         f.rotation_reason = reason
         self._carry_est = f.est_record_bytes
         if f.get_num_written_records() == 0:
             # never publish empty files; just drop the tmp
-            self._retry(f.close, "close")
+            self._close_file(f)
             self._retry(lambda: self.p.fs.delete(f.path), "delete")
             self._fold_pipe_stats(f)
             self.current_file = None
             return
-        self._retry(f.close, "close")
+        self._close_file(f)
         # pre-publish fence check (side-effect-free broker predicate): a
         # run whose partition this member can no longer commit — the drain
         # window lapsed, or the session expired under us — must not
@@ -2303,6 +2328,8 @@ class _Worker:
             self._fence_abandon_closed(f, fenced_parts)
             return
         size = self.p.fs.size(f.path)
+        if span is not None:
+            span["bytes"] = size
         self.p._flushed_records.mark(self._file_records)
         self.p._flushed_bytes.mark(size)
         self.p._file_size_histogram.update(size)
@@ -2310,7 +2337,7 @@ class _Worker:
         (self.p._rotated_time if reason == "time"
          else self.p._rotated_revoke if reason == "revoke"
          else self.p._rotated_size).mark()
-        dest = self._rename_and_move(f.path)
+        dest = self._rename_and_move(f.path, file=f.seq)
         self._fold_pipe_stats(f)
         self.current_file = None
         # ack strictly after durable publish (KPW.java:347-350).  A fenced
@@ -2322,13 +2349,14 @@ class _Worker:
         self._unacked_count = 0
         self._oldest_unacked_ts = None
         i = 0
-        try:
-            while i < len(pending):
-                partition, start, end = pending[i]
-                self.p.consumer.ack_run(partition, start, end - start)
-                i += 1
-        except StaleGenerationError as e:
-            self._fenced_ack_cleanup(dest, pending, i, e)
+        with stage("worker.ack", file=f.seq, runs=len(pending)):
+            try:
+                while i < len(pending):
+                    partition, start, end = pending[i]
+                    self.p.consumer.ack_run(partition, start, end - start)
+                    i += 1
+            except StaleGenerationError as e:
+                self._fenced_ack_cleanup(dest, pending, i, e)
 
     def _fence_abandon_closed(self, f: ParquetFile,
                               fenced_parts: set) -> None:
@@ -2400,13 +2428,15 @@ class _Worker:
                      file=dest, dropped_runs=len(fenced), error=repr(exc))
 
     def _rename_and_move(self, tmp_path: str,
-                         subdir: str | None = None) -> str:
+                         subdir: str | None = None,
+                         file: int | None = None) -> str:
         # (KPW.java:359-378); spanned as one publish stage so the e2e
         # stall breakdown can attribute verify+rename time per file.
-        # ``subdir`` = the partition path in partitioned mode.  Returns
+        # ``subdir`` = the partition path in partitioned mode; ``file`` =
+        # the worker's number of the file, for the span.  Returns
         # the published destination path (the fenced-ack un-publish
         # backstop needs the exact dest the rename landed on).
-        with stage("worker.publish"):
+        with stage("worker.publish", file=file):
             return self._rename_and_move_inner(tmp_path, subdir)
 
     def _rename_and_move_inner(self, tmp_path: str,

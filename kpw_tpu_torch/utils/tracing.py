@@ -67,6 +67,30 @@ STAGE_NAMES = (
     "tenant.schema.audit",
 )
 
+# The port's own span names, beyond the JAX package's (``STAGE_NAMES``
+# stays equal to it): the thread worker's whole file cycle and a row
+# group's path through the pipeline.
+#   worker.poll     — sizing and making one consumer poll, with the 1 ms
+#                     sleep of an empty one
+#   worker.handoff  — the row-group flush hand-off (the blocking queue put)
+#                     and the note of the appended runs for their ack
+#   worker.rotate   — rotate to commit: close, publish and ack of one file
+#   worker.close    — the file's close inside worker.rotate: the wait for
+#                     its in-flight row groups, then the footer
+#   worker.ack      — the offset commits of one published file
+#   rowgroup.merge  — concatenating a row group's appended batches
+#   rowgroup.latency — a row group's detach to the end of its IO write
+#                      (recorded with record_span from the IO stage)
+PORT_STAGE_NAMES = (
+    "worker.poll",
+    "worker.handoff",
+    "worker.rotate",
+    "worker.close",
+    "worker.ack",
+    "rowgroup.merge",
+    "rowgroup.latency",
+)
+
 
 class StageTimer:
     """Thread-safe cumulative timer keyed by stage name."""
@@ -131,9 +155,15 @@ class SpanRecorder:
         self._dropped = 0
         # wall-clock anchor + monotonic epoch: spans are timed with
         # perf_counter (monotonic, ns resolution) but anchored to an
-        # absolute wall time so multiple recorders/processes can be lined up
-        self.epoch_wall = time.time()
-        self._epoch = time.perf_counter()
+        # absolute wall time so multiple recorders/processes — and the
+        # PyTorch profiler's events, which are on the Unix clock — can be
+        # lined up.  The wall reading is bracketed by two perf_counter
+        # readings and paired with their midpoint.
+        p0 = time.perf_counter_ns()
+        wall = time.time_ns()
+        p1 = time.perf_counter_ns()
+        self.epoch_wall = wall / 1e9
+        self._epoch = (p0 + p1) / 2e9
 
     def now(self) -> float:
         """Seconds since the recorder's epoch (span clock)."""
@@ -322,6 +352,9 @@ class MultiProcessTrace:
 
 _tracer: StageTimer | None = None
 _recorder: SpanRecorder | None = None
+# per thread: the attrs of the traced span that counts this thread's host
+# <-> device copies (``device.to_device`` / ``device.to_host``), or None
+_transfers = threading.local()
 
 
 def set_tracer(tracer: StageTimer | None) -> None:
@@ -349,25 +382,74 @@ def get_span_recorder() -> SpanRecorder | None:
 def stage(name: str, **attrs):
     """Span a pipeline stage: feeds the installed StageTimer and/or
     SpanRecorder and annotates the PyTorch profiler timeline.  A true no-op
-    (just a yield) when neither is installed, so the hot path pays nothing
-    by default.  ``attrs`` (row-group ordinal, file path, batch rows, ...)
-    are only consumed when a SpanRecorder is installed."""
+    (just a yield of None) when neither is installed, so the hot path pays
+    nothing by default.  ``attrs`` (row-group ordinal, file path, batch
+    rows, ...) are only consumed when a SpanRecorder is installed; the
+    context then yields the attrs dict, so the spanned code can add
+    attributes it only learns inside the span.  Each recorded span carries
+    ``cpu_ms``, its thread's CPU time over the span
+    (``time.thread_time_ns``): its wall time less ``cpu_ms`` is the time the
+    thread was off a core, waiting on the GIL, a lock, a queue or the
+    card."""
     tracer = _tracer
     recorder = _recorder
     if tracer is None and recorder is None:
-        yield
+        yield None
         return
+    # the span's own clock reads lie inside its interval, so that spans
+    # that follow each other on a thread leave no gap of the seam's making
+    t0 = time.perf_counter()
+    c0 = time.thread_time_ns() if recorder is not None else 0
     import torch.profiler
 
-    t0 = time.perf_counter()
     try:
         with torch.profiler.record_function(name):
-            yield
+            yield attrs if recorder is not None else None
     finally:
+        if recorder is not None:
+            attrs["cpu_ms"] = (time.thread_time_ns() - c0) / 1e6
         dt = time.perf_counter() - t0
         if tracer is not None:
             tracer.record(name, dt)
         if recorder is not None:
             t = threading.current_thread()
             recorder.record(name, t.name, t.ident or 0,
-                            t0 - recorder._epoch, dt, attrs or None)
+                            t0 - recorder._epoch, dt, attrs)
+
+
+def record_span(name: str, start_s: float, end_s: float, **attrs) -> None:
+    """Record a span whose ends were taken apart from any ``with`` block —
+    on ``time.perf_counter``'s clock, possibly on two threads (a row group's
+    detach and the end of its IO write).  No thread CPU time: its work ran
+    on several threads.  A no-op when neither a StageTimer nor a
+    SpanRecorder is installed."""
+    tracer = _tracer
+    recorder = _recorder
+    if tracer is None and recorder is None:
+        return
+    dt = end_s - start_s
+    if tracer is not None:
+        tracer.record(name, dt)
+    if recorder is not None:
+        t = threading.current_thread()
+        recorder.record(name, t.name, t.ident or 0,
+                        start_s - recorder._epoch, dt, attrs or None)
+
+
+@contextmanager
+def count_transfers(counts: dict | None):
+    """Count the calling thread's host <-> device copies into ``counts`` —
+    a traced span's attrs, as :func:`stage` yields them — until the block
+    ends: ``h2d_bytes`` and ``d2h_bytes``, each with its ``_pinned_bytes``
+    part.  With ``counts`` None (no recorder installed) nothing counts."""
+    prev = getattr(_transfers, "counts", None)
+    _transfers.counts = counts
+    try:
+        yield counts
+    finally:
+        _transfers.counts = prev
+
+
+def transfer_counts() -> dict | None:
+    """The counts :func:`count_transfers` installed on this thread, or None."""
+    return getattr(_transfers, "counts", None)

@@ -289,6 +289,65 @@ def test_writer_card_equals_cpu_encoder(card, pipeline):
         write(CpuChunkEncoder(props.encoder_options()))
 
 
+@pytest.mark.parametrize("pipeline", [False, True])
+@pytest.mark.parametrize("cardinality", ["low", "high"])
+def test_traced_row_group_carries_its_transfers_and_device_time(card, pipeline,
+                                                                 cardinality):
+    """With a span recorder installed, each row group's launch (pipelined)
+    or whole-encode span carries the bytes it moved each way and the
+    stream's time between its CUDA events; the file is unchanged.  With
+    high cardinality every dictionary is rejected, so sync 2 reads nothing
+    back from the card."""
+    from kpw_tpu_torch.core import (ParquetFileWriter, Schema, WriterProperties,
+                                    columns_from_arrays, leaf)
+    from kpw_tpu_torch.ops.backend import CudaChunkEncoder
+    from kpw_tpu_torch.utils import tracing
+
+    rng = np.random.default_rng(9)
+    n = 40000
+    if cardinality == "low":
+        arrays = {"a": rng.integers(0, 100, n).astype(np.int64),
+                  "b": rng.integers(1, 266, n).astype(np.int32)}
+        schema = Schema([leaf("a", "int64"), leaf("b", "int32")])
+        least_h2d = 3 * 4 * (n // 2)  # a's two 32-bit key halves, b's one
+    else:  # unique ids and timestamps: far over the dictionary ratio
+        arrays = {"id": rng.permutation(n).astype(np.int64) << 20,
+                  "ts": 1_700_000_000_000 + np.cumsum(rng.integers(1, 9, n))}
+        schema = Schema([leaf("id", "int64"), leaf("ts", "int64")])
+        least_h2d = 2 * 4 * (n // 2)  # a 32-bit key a row, each column
+    props = WriterProperties(row_group_size=1)  # a row group a batch
+
+    def write():
+        buf = io.BytesIO()
+        w = ParquetFileWriter(buf, schema, props, pipeline=pipeline,
+                              encoder=CudaChunkEncoder(props.encoder_options()))
+        for half in (slice(0, n // 2), slice(n // 2, n)):
+            w.write_batch(columns_from_arrays(schema, {k: v[half] for k, v in arrays.items()}))
+        w.close()
+        dictionary = [c.meta_data.dictionary_page_offset is not None
+                      for rg in w._row_groups for c in rg.columns]
+        return buf.getvalue(), dictionary
+
+    plain, dictionary = write()
+    assert all(dictionary) if cardinality == "low" else not any(dictionary)
+    rec = tracing.SpanRecorder()
+    tracing.set_span_recorder(rec)
+    try:
+        traced, _ = write()
+    finally:
+        tracing.set_span_recorder(None)
+    assert traced == plain
+    name = "rowgroup.launch" if pipeline else "rowgroup.encode"
+    spans = [s for s in rec.snapshot() if s[0] == name]
+    assert len(spans) == 2
+    for s in spans:
+        attrs = s[5]
+        assert attrs["h2d_bytes"] >= least_h2d, attrs
+        assert attrs["d2h_bytes"] > 0 and attrs["device_ms"] > 0, attrs
+        assert 0 <= attrs.get("h2d_pinned_bytes", 0) <= attrs["h2d_bytes"]
+        assert 0 <= attrs.get("d2h_pinned_bytes", 0) <= attrs["d2h_bytes"]
+
+
 @pytest.mark.parametrize("path", ["writer", "levels", "nested", "encodings", "strings",
                                   "cfg3"])
 def test_writer_paths_card_equal_cpu_encoder(card, path):
