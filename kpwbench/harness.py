@@ -15,6 +15,7 @@ reads every published file back.
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import shutil
 import tempfile
@@ -23,6 +24,7 @@ import time
 import numpy as np
 
 from . import broker as broker_mod
+from . import host as host_mod
 from . import load as load_mod
 from .reference import check as ref_check
 
@@ -47,6 +49,7 @@ class Run:
         self.files = []         # (path, bytes) of every published file
         self.load = None
         self.t_end = None     # when the wait for the window's commits ended
+        self.host = None      # the host's facts over the window (host.py)
 
     # -- helpers for metric readers -----------------------------------------
     def bursts(self, gap_s: float = 0.02) -> list:
@@ -213,13 +216,14 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
                 activities=[torch.profiler.ProfilerActivity.CUDA])
             prof.__enter__()
         run.w0 = time.perf_counter()
+        h0 = host_mod.snapshot()
         marks.append(("first files", run.w0))
         log("[setup] " + ", ".join(f"{name} {t - run.t_start:.3f} s" for name, t in marks))
         lag0 = _consumer_lag(broker, lg)
-        while time.perf_counter() < run.w0 + seconds:
-            time.sleep(min(0.25, max(0.0, run.w0 + seconds - time.perf_counter())))
-            spans.drain()
+        while (left := run.w0 + seconds - time.perf_counter()) > 0:
+            time.sleep(left)
         run.w1 = time.perf_counter()
+        run.host = host_mod.delta(h0, host_mod.snapshot())
         lg.stop_at = run.w1
         if prof is not None:
             prof.__exit__(None, None, None)
@@ -247,6 +251,9 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
             f"files {len(paths)}; committed {sum(committed)}; produced {sum(lg.ends)}; "
             f"consumer lag at window start {lag0}, at end {lag1}; load generator "
             f"cpu {lg.cpu_s:.3f} s, max lag {lg.max_lag_s * 1e3:.3f} ms")
+        log("[host] " + json.dumps(run.host))
+        log("[bursts] " + json.dumps([[round(t - run.w0, 6), n] for t, n in run.bursts()
+                                      if run.w0 <= t <= run.w1]))
         if stats is not None:
             stats.update(lag_start=lag0, lag_end=lag1, files=len(paths))
         t_ref = time.perf_counter()

@@ -42,7 +42,7 @@ def _card_lines() -> list:
         lines.append(f"[card] nvidia-smi: not read ({exc!r})")
     try:
         with open("/proc/meminfo") as f:
-            lines.append("[host] " + " ".join(f.readline().split()[:2]))
+            lines.append("[machine] " + " ".join(f.readline().split()[:2]))
     except OSError:
         pass
     return lines

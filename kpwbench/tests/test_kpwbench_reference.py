@@ -121,3 +121,41 @@ def test_bitpack_work_matches_hand_counts():
     assert m.group_work(pf, ["plain"]) == 0
     # k = 5,000: w = 13 on each page: 299,593 * 13 bits = 486,839 B (rounded up)
     assert m.group_work(pf, ["k5000"]) == 4 * 299_596 + 486_839 + 5
+
+
+def _bursts_run(bursts, partitions=2, w0=10.0, w1=20.0):
+    """A ``Run`` whose commits come in the given bursts, each of
+    (time, records) split over the partitions, its commits 1 ms apart."""
+    from types import SimpleNamespace
+
+    from kpwbench.harness import Run
+
+    run = Run(SimpleNamespace(config={"partitions": partitions}, traffic={}), 0, w1 - w0,
+              False)
+    run.w0, run.w1 = w0, w1
+    front = [0] * partitions
+    for t, records in bursts:
+        for p in range(partitions):
+            front[p] += records // partitions
+            run.commits.append((t + p * 1e-3, p, front[p]))
+    return run
+
+
+@pytest.mark.parametrize("name", ["records_per_s", "ack.records_per_s"])
+def test_records_per_s_counts_whole_files_between_the_windows_bursts(name):
+    m = _metric(name)
+    # bursts at 9.5 and 20.5 lie outside the window [10, 20]; inside, the
+    # first burst's records were made before it, so only those of the
+    # later three count, over the 9 s from the first burst to the last
+    run = _bursts_run([(9.5, 1000), (10.5, 1000), (13.5, 2000), (16.5, 1000),
+                       (19.5, 1000), (20.5, 4000)])
+    assert [round(t, 3) for t, _ in run.bursts()] == [9.501, 10.501, 13.501, 16.501,
+                                                       19.501, 20.501]
+    assert m.read(run) == pytest.approx((2000 + 1000 + 1000) / (19.501 - 10.501))
+
+
+@pytest.mark.parametrize("name", ["records_per_s", "ack.records_per_s"])
+@pytest.mark.parametrize("bursts", [[], [(12.0, 1000)], [(9.0, 1000), (15.0, 1000)],
+                                    [(15.0, 1000), (25.0, 1000)]])
+def test_records_per_s_reads_nothing_under_two_bursts_in_the_window(name, bursts):
+    assert _metric(name).read(_bursts_run(bursts)) is None
