@@ -8,11 +8,16 @@ writer's threads, traced and untraced.
 
 Each run is ``kpwbench.harness.run_cell`` of the cell (``taxi64.catchup`` by
 default; ``--cpu`` runs its tiny version on the CPU) in this process.  A
-sampler thread reads the CPU clocks of the writer's threads every 20 ms.
-The split assumes one thread worker, since the harness keeps no thread with
-a span.  It reads spans without attributes too, as a writer that predates
-``cpu_ms`` records them.  ``--micro`` first times the span seam's clocks
-and an empty span on this host.
+sampler thread reads the CPU clocks of the writer's threads every 20 ms, by
+kernel thread id.  The split assumes one thread worker, since the harness
+keeps no thread with a span.  Where the window holds ``worker.rotate_wait``
+spans, the worker hands each file to its finisher thread: the worker's
+cycle is then poll, shred, append, handoff and the wait, and
+``worker.rotate`` (close, publish, ack) is the finisher's, reported on its
+own; without them ``worker.rotate`` is part of the worker's cycle, as in a
+writer that predates the finisher.  It reads spans without attributes too,
+as a writer that predates ``cpu_ms`` records them.  ``--micro`` first times
+the span seam's clocks and an empty span on this host.
 """
 
 from __future__ import annotations
@@ -27,11 +32,18 @@ import threading
 import time
 
 # the worker thread's top-level spans: they follow each other on its thread
-TOP = ("worker.poll", "worker.shred", "worker.append", "worker.handoff",
-       "worker.rotate")
+CYCLE = ("worker.poll", "worker.shred", "worker.append", "worker.handoff")
 ROTATE_PARTS = ("worker.close", "worker.publish", "worker.ack")
 THREADS = {"worker": "KafkaProtoParquetWriter-", "fetcher": "smart-consumer-",
            "encode": "kpw-rg-encode", "assemble": "kpw-rg-assemble", "io": "kpw-rg-io"}
+GROUPS = ("worker", "finisher", *list(THREADS)[1:])
+
+
+def _group(name: str) -> str | None:
+    """The thread group of a thread's name: the worker's finisher thread is
+    named after the worker, with ``-finisher`` at the end."""
+    g = next((g for g, p in THREADS.items() if name.startswith(p)), None)
+    return "finisher" if g == "worker" and name.endswith("-finisher") else g
 
 
 def _clip(start: float, dur: float, w0: float, w1: float) -> float:
@@ -75,16 +87,20 @@ def analyse(spans: list, w0: float, w1: float) -> dict:
         by.setdefault(s[0], []).append(s)
     rotates = by.get("worker.rotate", [])
     files = max(len(rotates), 1)
-    top = {n: sum(_clip(s[1], s[2], w0, w1) for s in sp if s[0] == n) for n in TOP}
+    finisher = any(s[0] == "worker.rotate_wait" for s in sp)
+    top_names = CYCLE + (("worker.rotate_wait",) if finisher else ("worker.rotate",))
+    top = {n: sum(_clip(s[1], s[2], w0, w1) for s in sp if s[0] == n) for n in top_names}
     covered = sum(top.values())
     gaps: dict = {}
-    seq = sorted((s for s in sp if s[0] in TOP), key=lambda s: s[1])
+    seq = sorted((s for s in sp if s[0] in top_names), key=lambda s: s[1])
     for x, y in zip(seq, seq[1:]):
         g = min(y[1], w1) - max(x[1] + x[2], w0)
         if g > 0:
             gaps[f"{x[0]}->{y[0]}"] = gaps.get(f"{x[0]}->{y[0]}", 0.0) + g
     per_file = {n: v / files * 1e3 for n, v in top.items()}
     per_file["uncovered"] = (win - covered) / files * 1e3
+    rotate_s = sum(_clip(s[1], s[2], w0, w1) for s in sp if s[0] == "worker.rotate")
+    per_file["worker.rotate"] = rotate_s / files * 1e3
     in_rotate = lambda s: any(r[1] <= s[1] <= r[1] + r[2] for r in rotates)  # noqa: E731
     for n in ROTATE_PARTS:
         per_file[n] = sum(s[2] for s in by.get(n, []) if in_rotate(s)) / files * 1e3
@@ -104,7 +120,11 @@ def analyse(spans: list, w0: float, w1: float) -> dict:
              if (lat := d.get("rowgroup.latency")) is not None
              and w0 <= lat[1] and lat[1] + lat[2] <= w1
              and (p := _rowgroup(d)) is not None]
-    out = {"window_s": win, "files": len(rotates), "cover_share": covered / win,
+    out = {"window_s": win, "files": len(rotates),
+           "layout": "finisher" if finisher else "serial",
+           # the worker thread's cycle, and the finisher thread's busy share
+           "cover_share": covered / win,
+           "finisher_share": rotate_s / win if finisher else None,
            "uncovered_s": win - covered,
            "gaps_s": dict(sorted(gaps.items(), key=lambda kv: -kv[1])),
            "per_file_ms": per_file,
@@ -120,27 +140,30 @@ def analyse(spans: list, w0: float, w1: float) -> dict:
 
 
 class Sampler(threading.Thread):
-    """Sums the CPU clocks of the writer's threads, by group, every 20 ms."""
+    """Sums the CPU clocks of the writer's threads, by group, every 20 ms.
+    A thread's clock is read by its kernel thread id, the clock id that
+    ``pthread_getcpuclockid`` gives: a thread that has just ended reads
+    EINVAL, where its pthread handle could no longer be dereferenced."""
 
     def __init__(self) -> None:
         super().__init__(daemon=True)
         self.stop = threading.Event()
-        self.last: dict = {}
-        self.total = {g: 0.0 for g in THREADS}
+        self.last: dict = {}  # kernel thread id -> CPU seconds
+        self.total = dict.fromkeys(GROUPS, 0.0)
         self.samples: list = []  # (perf_counter, {group: cpu_s})
 
     def run(self) -> None:
         while not self.stop.is_set():
             for t in threading.enumerate():
-                g = next((g for g, p in THREADS.items() if t.name.startswith(p)), None)
-                if g is None or t.ident is None:
+                g, tid = _group(t.name), t.native_id
+                if g is None or tid is None:
                     continue
                 try:
-                    c = time.clock_gettime(time.pthread_getcpuclockid(t.ident))
-                except (OSError, ProcessLookupError):
+                    c = time.clock_gettime((~tid << 3) | 6)
+                except OSError:
                     continue
-                self.total[g] += c - self.last.get(t, 0.0)
-                self.last[t] = c
+                self.total[g] += c - self.last.get(tid, 0.0)
+                self.last[tid] = c
             self.samples.append((time.perf_counter(), dict(self.total)))
             time.sleep(0.02)
 
@@ -148,7 +171,7 @@ class Sampler(threading.Thread):
         for (t0, a), (t1, b) in zip(self.samples, self.samples[1:]):
             if t0 <= t <= t1:
                 f = (t - t0) / (t1 - t0) if t1 > t0 else 0.0
-                return {g: a[g] + f * (b[g] - a[g]) for g in THREADS}
+                return {g: a[g] + f * (b[g] - a[g]) for g in GROUPS}
         return None
 
 
@@ -236,7 +259,7 @@ def main() -> None:
         row = {"seed": seed, "trace": trace, "correct": res["correct"],
                "committed": committed, "records_per_s": rate.read(run),
                "metrics": res["metrics"],
-               "cpu_s": {g: c1[g] - c0[g] for g in THREADS} if c0 and c1 else None}
+               "cpu_s": {g: c1[g] - c0[g] for g in GROUPS} if c0 and c1 else None}
         if row["cpu_s"]:
             row["worker_cpu_us_per_record"] = row["cpu_s"]["worker"] / committed * 1e6
         if trace:

@@ -310,7 +310,19 @@ class FailoverFileSystem(FileSystem):
         # rename on the fallback.
         if not self.fallback.exists(src) and self.primary.exists(src):
             self.fallback.mkdirs(_parent(src))
-            _copy_file(self.primary, src, self.fallback, src)
+            try:
+                _copy_file(self.primary, src, self.fallback, src)
+            except OSError:
+                # the tmp cannot be read back (a worker's finisher can
+                # publish after its next file's open degraded the route):
+                # publish it in place, where it would have gone anyway,
+                # and leave no partial copy for a retry to rename
+                try:
+                    self.fallback.delete(src)
+                except OSError:
+                    pass
+                self.primary.rename(src, dst)
+                return
             try:
                 self.primary.delete(src)
             except OSError:

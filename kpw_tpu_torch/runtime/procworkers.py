@@ -1157,6 +1157,11 @@ class _ProcWorkerSlot:
         return not self._proc.is_alive()
 
     # -- supervisor surface ----------------------------------------------------
+    def unacked(self) -> tuple[int, float | None]:
+        """(records written and not yet acked, first write of the
+        oldest of them): this slot's share of the writer's ``ack_lag``."""
+        return self._unacked_count, self._oldest_unacked_ts
+
     def held_runs(self) -> list[tuple[int, int, int]]:
         """Every offset run dispatched to this child and never acked —
         the redelivery set after a death.  Mirrors ``_Worker.held_runs``

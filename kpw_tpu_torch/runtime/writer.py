@@ -20,6 +20,7 @@ with capped, backed-off restarts — terminal exhaustion raises
 from __future__ import annotations
 
 import logging
+import queue
 import random
 import re
 import struct
@@ -1093,8 +1094,8 @@ class KafkaProtoParquetWriter:
         lag = 0
         oldest: float | None = None
         for w in self._workers:
-            lag += w._unacked_count
-            ts = w._oldest_unacked_ts
+            n, ts = w.unacked()
+            lag += n
             if ts is not None and (oldest is None or ts < oldest):
                 oldest = ts
         return {
@@ -1319,9 +1320,50 @@ class KafkaProtoParquetWriter:
         return self._flushed_bytes.count
 
 
+class _Finish:
+    """One rotated file on its way to commit: close, fence check, publish,
+    acks (KPW.java:325-351), run by the worker's finisher thread or inline.
+    The worker hands over the file with its record count, its written runs
+    and their ack-lag share, so its own state already belongs to the next
+    file.  ``runs[acked:]`` are the runs still owed an ack.
+
+    The file's fate is decided once, under the lock: the finisher takes it
+    to publish when its close returns, an abandon path takes it to drop
+    before that, and whichever comes second gets False from ``decide``."""
+
+    def __init__(self, f: ParquetFile, reason: str, records: int,
+                 runs: list, unacked: int, oldest_ts: float | None) -> None:
+        self.file: ParquetFile | None = f  # let go once the finish ends
+        self.seq, self.path = f.seq, f.path
+        self.reason = reason
+        self.records = records
+        self.runs = runs
+        self.acked = 0
+        self.unacked = unacked
+        self.oldest_ts = oldest_ts
+        self.fate: str | None = None  # "publish" | "abandon"
+        self.error: BaseException | None = None
+        self.done = threading.Event()
+        self._lock = threading.Lock()
+
+    def decide(self, fate: str) -> bool:
+        with self._lock:
+            if self.fate is not None:
+                return False
+            self.fate = fate
+            return True
+
+    def owed(self) -> list:
+        """The runs this finish still answers for: none once abandoned
+        (the abandoning worker took them back)."""
+        return [] if self.fate == "abandon" else self.runs[self.acked:]
+
+
 class _Worker:
     """One writer thread: private current file, shared consumer
-    (KPW.java:216-399)."""
+    (KPW.java:216-399).  A size or time rotation hands the file to the
+    worker's finisher thread (:class:`_Finish`), one file deep, so its
+    close, publish and acks overlap the next file's poll and shred."""
 
     def __init__(self, parent: KafkaProtoParquetWriter, index: int) -> None:
         self.p = parent
@@ -1398,6 +1440,15 @@ class _Worker:
         # commit)
         self._fence_req: frozenset | None = None
         self._fence_abandon_req: frozenset | None = None
+        # the rotated file being finished (close, publish, acks), one deep:
+        # the worker waits for it before it hands over the next.  Set and
+        # cleared by the worker thread; the finisher thread, started at
+        # the first hand-over, takes jobs from the queue until a None
+        self._finishing: _Finish | None = None
+        self._finish_q: queue.SimpleQueue = queue.SimpleQueue()
+        self._finisher: threading.Thread | None = None
+        # the finisher and the worker both fold pipeline stats
+        self._fold_lock = threading.Lock()
 
     def start(self) -> None:
         self._thread.start()
@@ -1407,18 +1458,43 @@ class _Worker:
 
     def join(self, timeout: float | None = None) -> None:
         """Common slot surface with the process-mode worker: the
-        supervisor joins a dead slot before reading its held runs."""
+        supervisor joins a dead slot, its finisher too, before reading
+        its held runs."""
+        t_end = None if timeout is None else time.monotonic() + timeout
         self._thread.join(timeout)
+        fin = self._finisher
+        if fin is not None:
+            fin.join(None if t_end is None
+                     else max(0.0, t_end - time.monotonic()))
 
     def held_runs(self) -> list[tuple[int, int, int]]:
         """Every offset run this worker consumed but never acked, as
-        (partition, start, end) — written-but-unpublished runs plus the
-        in-flight poll batch.  Read by the supervisor AFTER joining the
-        dead thread (single-writer discipline: only the worker thread
-        mutates these)."""
+        (partition, start, end) — the finishing file's runs not yet acked,
+        written-but-unpublished runs, and the in-flight poll batch.  Read
+        by the supervisor AFTER joining the dead thread and its finisher
+        (single-writer discipline: only those threads mutate these)."""
+        job = self._finishing
+        runs = [(p, s, e) for p, s, e in job.owed()] if job else []
+        return runs + self._own_runs()
+
+    def _own_runs(self) -> list[tuple[int, int, int]]:
+        """The held runs outside the finishing file, which the worker
+        thread alone answers for."""
         runs = [(p, s, e) for p, s, e in self._written_runs]
         runs.extend((p, s, s + c) for p, s, c in self._inflight_runs)
         return runs
+
+    def unacked(self) -> tuple[int, float | None]:
+        """(records written and not yet acked, first write of the oldest
+        of them), the finishing file's included: this worker's share of
+        the writer's ``ack_lag``."""
+        n, ts = self._unacked_count, self._oldest_unacked_ts
+        job = self._finishing
+        if job is not None and job.unacked:
+            n += job.unacked
+            if job.oldest_ts is not None and (ts is None or job.oldest_ts < ts):
+                ts = job.oldest_ts
+        return n, ts
 
     # -- cooperative-revocation fence (fetcher-thread setters) ---------------
     def request_fence(self, parts: frozenset) -> None:
@@ -1462,10 +1538,17 @@ class _Worker:
         file force an early "revoke" rotation — publish + ack NOW, inside
         the drain window where the broker still accepts this member's
         commits for them — which is what lets the consumer confirm the
-        handoff with zero lost and zero duplicated rows."""
+        handoff with zero lost and zero duplicated rows.
+
+        A finishing file that holds LOST partitions' rows is dropped too,
+        unless its publish began: then its own fence check and acks
+        settle its runs, and the worker answers only for its own."""
         aband = self._fence_abandon_req
         if aband:
-            held = self.held_runs()
+            job = self._finishing
+            if job is not None and any(p in aband for p, _, _ in job.owed()):
+                self._drop_finishing()
+            held = self._own_runs()
             if any(p in aband for p, _, _ in held):
                 retained = [(p, s, e) for p, s, e in held if p not in aband]
                 dropped = sum(e - s for p, s, e in held if p in aband)
@@ -1539,11 +1622,21 @@ class _Worker:
         file's pipeline threads.  Returns False when the thread is still
         alive after ``timeout`` (hung in IO); with
         ``abandon_if_hung=False`` (the deadline-bounded close) the open
-        file is then left untouched — the hung thread owns the sink."""
+        file is then left untouched — the hung thread owns the sink.
+
+        A file that already reached rotation is still published and acked
+        inside ``timeout``: the finisher runs its job to the end, then
+        stops.  A finisher still busy at the timeout counts as hung."""
+        t_end = time.monotonic() + timeout
         self._stop.set()
         self._thread.join(timeout=timeout)
-        hung = self._thread.is_alive()
+        self._stop_finisher()  # a hung worker thread never reaches its own
+        fin = self._finisher
+        if fin is not None:
+            fin.join(timeout=max(0.0, t_end - time.monotonic()))
+        hung = self._thread.is_alive() or (fin is not None and fin.is_alive())
         if abandon_if_hung or not hung:
+            self._drop_finishing()
             for f in self._open_files():
                 f.rotation_reason = "close"
                 f.abandon()
@@ -1616,12 +1709,17 @@ class _Worker:
             # slot's replacement is long since running
             if self.condemned:
                 self._abandon_open_files("error")
+            # the finisher runs its last job to the end, then stops
+            self._stop_finisher()
 
     def _loop_once(self, b, poll_batch_base: int, use_wire: bool,
                    use_batch: bool = False) -> None:
         """One poll→parse→write→rotate iteration (the body of the
         reference's worker loop, KPW.java:253-292), extracted so the
         degraded-mode pause seam can wrap exactly one iteration."""
+        job = self._finishing
+        if job is not None and job.error is not None and job.done.is_set():
+            self._settle(job)  # the finisher failed: raise it here, now
         if (self._fence_req is not None
                 or self._fence_abandon_req is not None):
             self._service_fence()
@@ -1926,7 +2024,9 @@ class _Worker:
         """Abandon every open file: pipeline threads stopped, sinks
         closed, tmps left un-published and un-acked (swept + redelivered
         later).  Never raises — callers are death/pause/zombie cleanup
-        paths that must complete."""
+        paths that must complete.  The finishing file goes too unless its
+        publish began (``_drop_finishing``)."""
+        self._drop_finishing()
         for f in self._open_files():
             try:
                 f.rotation_reason = reason
@@ -1970,7 +2070,8 @@ class _Worker:
         # which is the whole point of degraded_mode (the tmps are garbage
         # either way)
         self._abandon_open_files("error")
-        held = self.held_runs()
+        # a finish whose publish began answers for its own runs
+        held = self._own_runs()
         self._written_runs = []
         self._inflight_runs = []
         self._unacked_count = 0
@@ -2168,7 +2269,9 @@ class _Worker:
         max).  Never raises: observability must not take down the
         rotation path."""
         try:
-            self._fold_into(self._pipe_totals, f.pipeline_stats())
+            ps = f.pipeline_stats()
+            with self._fold_lock:
+                self._fold_into(self._pipe_totals, ps)
         except Exception:
             logger.exception("pipeline-stat fold failed (ignored)")
 
@@ -2195,13 +2298,14 @@ class _Worker:
         """This worker's pull-based snapshot: ack-lag contribution plus
         pipeline totals (rotated-away files folded + the live file's
         stats merged in)."""
-        tot = {
-            "files": self._pipe_totals["files"],
-            "split_assembly": self._pipe_totals["split_assembly"],
-            "stage_busy_s": dict(self._pipe_totals["stage_busy_s"]),
-            "queues": {q: dict(v)
-                       for q, v in self._pipe_totals["queues"].items()},
-        }
+        with self._fold_lock:
+            tot = {
+                "files": self._pipe_totals["files"],
+                "split_assembly": self._pipe_totals["split_assembly"],
+                "stage_busy_s": dict(self._pipe_totals["stage_busy_s"]),
+                "queues": {q: dict(v)
+                           for q, v in self._pipe_totals["queues"].items()},
+            }
         try:
             open_files = self._open_files()
         # lint: swallowed-exceptions ok — lock-free scrape racing the
@@ -2217,7 +2321,7 @@ class _Worker:
             # is droppable, and raising would take down the stats() scrape
             except Exception:
                 pass  # file may be rotating away under us
-        ts = self._oldest_unacked_ts
+        unacked, ts = self.unacked()
         stall_age, stall_label = self.heartbeat.stall()
         return {
             "worker": self.index,
@@ -2231,7 +2335,7 @@ class _Worker:
             "retries": self.retries,
             "retry_backoff_s": round(self.backoff_s, 6),
             "last_error": self.last_error,
-            "unacked_records": self._unacked_count,
+            "unacked_records": unacked,
             "oldest_unacked_age_s": (round(time.time() - ts, 6)
                                      if ts is not None else 0.0),
             "open_partitions": self.open_partitions(),
@@ -2292,81 +2396,190 @@ class _Worker:
     def _finalize_current_file(self, reason: str = "size") -> None:
         """Close (flush+footer) -> rename/publish -> ack.  Order is the
         correctness protocol (KPW.java:325-351).  ``reason`` records why
-        the file rotated ("size" | "time") for the rotation-cause
-        meters.  Spanned whole as ``worker.rotate``, rotate to commit."""
-        f = self.current_file
-        if f is None:
+        the file rotated ("size" | "time" | "revoke") for the
+        rotation-cause meters.
+
+        One deep: the previous file's finish is waited for first (span
+        ``worker.rotate_wait``).  A size or time rotation then hands the
+        file to the finisher thread and returns, so the next file's poll
+        and shred overlap this one's close; a revoke rotation finishes
+        inline, because the drain window needs its publish before it
+        confirms.  Either way the finish is spanned whole as
+        ``worker.rotate``, rotate to commit."""
+        if self.current_file is None:
             return
-        with stage("worker.rotate", file=f.seq, reason=reason,
-                   records=f.get_num_written_records()) as span:
-            self._rotate(f, reason, span)
+        self._await_finish()
+        job = self._take_file(reason)
+        if reason == "revoke":
+            self._finish(job)
+            self._settle(job)
+            return
+        if self._finisher is None:
+            self._finisher = threading.Thread(
+                target=self._finish_loop, name=f"{self._thread.name}-finisher",
+                daemon=True)
+            self._finisher.start()
+        self._finish_q.put(job)
+
+    def _take_file(self, reason: str) -> _Finish:
+        """Move the current file, its record count, its written runs and
+        their ack-lag share into a finish job, published as
+        ``_finishing`` before the worker's own state is cleared so that
+        ``held_runs()`` never misses them."""
+        f = self.current_file
+        f.rotation_reason = reason
+        self._carry_est = f.est_record_bytes
+        job = _Finish(f, reason, self._file_records, self._written_runs,
+                      self._unacked_count, self._oldest_unacked_ts)
+        self._finishing = job
+        self.current_file = None
+        self._file_records = 0
+        self._written_runs = []
+        self._unacked_count = 0
+        self._oldest_unacked_ts = None
+        return job
+
+    def _finish_loop(self) -> None:
+        while (job := self._finish_q.get()) is not None:
+            self._finish(job)
+
+    def _stop_finisher(self) -> None:
+        if self._finisher is not None:
+            self._finish_q.put(None)
+
+    def _finish(self, job: _Finish) -> None:
+        """Run one finish to its end; a failure is kept on the job for
+        the worker to raise (``_settle``), and the file is abandoned."""
+        f = job.file
+        try:
+            with stage("worker.rotate", file=f.seq, reason=job.reason,
+                       records=f.get_num_written_records()) as span:
+                self._rotate(job, span)
+        except BaseException as e:
+            # kept, as a future keeps it, and raised on the worker thread
+            job.error = e
+            try:
+                f.abandon()
+            except Exception:
+                logger.exception("worker %d: abandon of %s failed "
+                                 "(ignored)", self.index, f.path)
+        finally:
+            self._fold_pipe_stats(f)
+            job.file = None
+            job.done.set()
+
+    def _await_finish(self) -> None:
+        """Wait for the finishing file (span ``worker.rotate_wait``), then
+        settle it.  A stop request ends the wait; ``close()`` then waits
+        for the finisher within its own timeout."""
+        job = self._finishing
+        if job is None:
+            return
+        with stage("worker.rotate_wait", file=job.seq):
+            while not job.done.wait(0.05):
+                if self._stop.is_set():
+                    raise RetryInterrupted()
+        self._settle(job)
+
+    def _settle(self, job: _Finish) -> None:
+        """Retire a finished job.  A failed one gives its unacked runs back
+        to the worker, the oldest first, and its exception is raised on the
+        worker thread, where the pause and death handling apply as if the
+        worker had closed the file itself.  An abandoned job raises
+        nothing: its file was given up already."""
+        self._finishing = None
+        if job.error is None or job.fate == "abandon":
+            return
+        self._take_back(job)
+        raise job.error
+
+    def _drop_finishing(self) -> None:
+        """Abandon the finishing file unless its publish began; its runs
+        then rejoin the worker's, so they redeliver through
+        ``held_runs()``.  The job stays ``_finishing`` until its thread
+        lets go of the file, which keeps a worker at two files."""
+        job = self._finishing
+        if job is not None and job.decide("abandon"):
+            self._take_back(job)
+
+    def _take_back(self, job: _Finish) -> None:
+        self._written_runs[:0] = [list(r) for r in job.runs[job.acked:]]
+        job.runs, job.acked = [], 0
+        self._note_unacked(job.unacked)
+        ts, cur = job.oldest_ts, self._oldest_unacked_ts
+        if ts is not None and (cur is None or ts < cur):
+            self._oldest_unacked_ts = ts
+        job.unacked, job.oldest_ts = 0, None
 
     def _close_file(self, f: ParquetFile) -> None:
         with stage("worker.close", file=f.seq):
             self._retry(f.close, "close")
 
-    def _rotate(self, f: ParquetFile, reason: str, span) -> None:
-        f.rotation_reason = reason
-        self._carry_est = f.est_record_bytes
-        if f.get_num_written_records() == 0:
-            # never publish empty files; just drop the tmp
-            self._close_file(f)
-            self._retry(lambda: self.p.fs.delete(f.path), "delete")
-            self._fold_pipe_stats(f)
-            self.current_file = None
+    def _rotate(self, job: _Finish, span) -> None:
+        f = job.file
+        if job.fate == "abandon":
+            f.abandon()  # dropped before its close began
             return
         self._close_file(f)
+        if self.condemned:
+            # the watchdog gave this slot up while the close hung: the
+            # supervisor redelivers the runs, so publish nothing
+            raise RetryInterrupted()
+        if not job.decide("publish"):
+            return  # dropped during the close: the tmp stays unpublished
+        if f.get_num_written_records() == 0:
+            # never publish empty files; just drop the tmp
+            self._retry(lambda: self.p.fs.delete(f.path), "delete")
+            return
         # pre-publish fence check (side-effect-free broker predicate): a
         # run whose partition this member can no longer commit — the drain
         # window lapsed, or the session expired under us — must not
         # publish, or the new owner's redelivery of those rows becomes a
         # duplicate.  Abandon the closed tmp instead: fenced runs drop
         # (the new owner republishes them), still-owned runs redeliver.
-        fenced_parts = {r[0] for r in self._written_runs
+        fenced_parts = {r[0] for r in job.runs
                         if not self.p.consumer.commit_allowed(r[0])}
         if fenced_parts:
-            self._fence_abandon_closed(f, fenced_parts)
+            self._fence_abandon_closed(job, fenced_parts)
             return
         size = self.p.fs.size(f.path)
         if span is not None:
             span["bytes"] = size
-        self.p._flushed_records.mark(self._file_records)
+        self.p._flushed_records.mark(job.records)
         self.p._flushed_bytes.mark(size)
         self.p._file_size_histogram.update(size)
         self._mark_index_meters(f)
-        (self.p._rotated_time if reason == "time"
-         else self.p._rotated_revoke if reason == "revoke"
+        (self.p._rotated_time if job.reason == "time"
+         else self.p._rotated_revoke if job.reason == "revoke"
          else self.p._rotated_size).mark()
         dest = self._rename_and_move(f.path, file=f.seq)
-        self._fold_pipe_stats(f)
-        self.current_file = None
-        # ack strictly after durable publish (KPW.java:347-350).  A fenced
-        # commit HERE means ownership moved between the pre-publish check
-        # and the ack (the zombie window): with nothing acked yet the file
-        # is un-published again and exactly-once is restored.
-        pending = list(self._written_runs)
-        self._written_runs.clear()
-        self._unacked_count = 0
-        self._oldest_unacked_ts = None
-        i = 0
-        with stage("worker.ack", file=f.seq, runs=len(pending)):
+        # ack strictly after durable publish (KPW.java:347-350), in file
+        # order: the worker hands over the next file only after this one.
+        # A fenced commit HERE means ownership moved between the
+        # pre-publish check and the ack (the zombie window): with nothing
+        # acked yet the file is un-published again and exactly-once is
+        # restored.
+        runs = job.runs
+        job.unacked, job.oldest_ts = 0, None
+        with stage("worker.ack", file=f.seq, runs=len(runs)):
             try:
-                while i < len(pending):
-                    partition, start, end = pending[i]
+                while job.acked < len(runs):
+                    partition, start, end = runs[job.acked]
                     self.p.consumer.ack_run(partition, start, end - start)
-                    i += 1
+                    job.acked += 1
             except StaleGenerationError as e:
-                self._fenced_ack_cleanup(dest, pending, i, e)
+                acked, job.acked = job.acked, len(runs)  # the cleanup settles the rest
+                self._fenced_ack_cleanup(dest, runs, acked, e)
 
-    def _fence_abandon_closed(self, f: ParquetFile,
+    def _fence_abandon_closed(self, job: _Finish,
                               fenced_parts: set) -> None:
-        """The pre-publish fence tripped: ``f`` is closed but must not be
-        published.  Delete the tmp, drop the fenced partitions' runs (the
-        new owner redelivers them), and redeliver the still-owned runs
-        whose rows just vanished with the file."""
-        retained = [(p, s, e) for p, s, e in self._written_runs
+        """The pre-publish fence tripped: the job's file is closed but
+        must not be published.  Delete the tmp, drop the fenced
+        partitions' runs (the new owner redelivers them), and redeliver
+        the still-owned runs whose rows just vanished with the file."""
+        retained = [(p, s, e) for p, s, e in job.runs
                     if p not in fenced_parts]
-        dropped = sum(e - s for p, s, e in self._written_runs
+        dropped = sum(e - s for p, s, e in job.runs
                       if p in fenced_parts)
         self.p._fence_abandons.mark()
         rec = self.p._flightrec
@@ -2374,12 +2587,9 @@ class _Worker:
             rec.note("rebalance_fence_abandon", worker=self.index,
                      partitions=sorted(fenced_parts),
                      dropped_records=dropped, retained_runs=len(retained))
-        self._retry(lambda: self.p.fs.delete(f.path), "delete")
-        self._fold_pipe_stats(f)
-        self.current_file = None
-        self._written_runs.clear()
-        self._unacked_count = 0
-        self._oldest_unacked_ts = None
+        self._retry(lambda: self.p.fs.delete(job.path), "delete")
+        job.acked = len(job.runs)  # dropped or redelivered below
+        job.unacked, job.oldest_ts = 0, None
         if retained:
             threading.Thread(
                 target=self._redeliver_runs, args=(retained,),

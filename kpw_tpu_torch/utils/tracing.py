@@ -74,7 +74,10 @@ STAGE_NAMES = (
 #                     sleep of an empty one
 #   worker.handoff  — the row-group flush hand-off (the blocking queue put)
 #                     and the note of the appended runs for their ack
-#   worker.rotate   — rotate to commit: close, publish and ack of one file
+#   worker.rotate   — rotate to commit: close, publish and ack of one file,
+#                     on the worker's finisher thread (inline for a revoke)
+#   worker.rotate_wait — the worker's wait, at a rotation, for the
+#                     previous file's worker.rotate to end
 #   worker.close    — the file's close inside worker.rotate: the wait for
 #                     its in-flight row groups, then the footer
 #   worker.ack      — the offset commits of one published file
@@ -85,6 +88,7 @@ PORT_STAGE_NAMES = (
     "worker.poll",
     "worker.handoff",
     "worker.rotate",
+    "worker.rotate_wait",
     "worker.close",
     "worker.ack",
     "rowgroup.merge",

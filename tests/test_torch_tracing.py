@@ -2,9 +2,10 @@
 
 - every literal span name in the package is registered, in the JAX
   package's ``STAGE_NAMES`` or in the port's own ``PORT_STAGE_NAMES``;
-- a traced writer's file cycle nests as documented: each ``worker.rotate``
-  holds one ``worker.close``, one ``worker.publish`` and the file's
-  ``worker.ack``; each ``rowgroup.latency`` holds its row group's merge,
+- a traced writer's file cycle nests as documented: each ``worker.rotate``,
+  on the worker's finisher thread, holds one ``worker.close``, one
+  ``worker.publish`` and the file's ``worker.ack``, and the worker thread
+  waits for it in ``worker.rotate_wait``; each ``rowgroup.latency`` holds its row group's merge,
   launch (or encode), assembly and IO write; every ``stage()`` span carries
   its thread's CPU time;
 - with nothing installed, spans and transfer counters read no clock and
@@ -41,7 +42,7 @@ TOPIC = "t"
 LIMIT_S = 30.0
 EPS = 1e-6  # float rounding of span ends, in seconds
 WORKER_TOP = ("worker.poll", "worker.shred", "worker.append", "worker.handoff",
-              "worker.rotate")
+              "worker.rotate_wait")
 
 
 def wait_until(pred, what: str, limit: float = LIMIT_S):
@@ -187,14 +188,27 @@ def test_file_cycle_and_row_group_spans_nest(mode):
         assert mine["worker.ack"][0][5]["runs"] >= 1
     assert len({r[5]["file"] for r in rotates}) == len(rotates)
 
-    # the worker's top-level spans follow each other on its thread
-    worker = rotates[0][2]
+    # the worker's top-level spans follow each other on its thread; the
+    # rotations, on its finisher thread, follow each other there
+    worker = by["worker.poll"][0][2]
+    assert {s[2] for s in by["worker.poll"]} == {worker}
+    finisher = rotates[0][2]
+    assert finisher != worker and {r[2] for r in rotates} == {finisher}
     top = sorted((s for s in spans if s[2] == worker and s[0] in WORKER_TOP),
                  key=lambda s: s[3])
     assert {s[0] for s in top} >= {"worker.poll", "worker.append", "worker.handoff",
-                                   "worker.rotate"}
+                                   "worker.rotate_wait"}
     for a, b in zip(top, top[1:]):
         assert a[3] + a[4] <= b[3] + EPS, (a[0], b[0])
+    fin = sorted(rotates, key=lambda s: s[3])
+    for a, b in zip(fin, fin[1:]):
+        assert a[3] + a[4] <= b[3] + EPS and a[5]["file"] < b[5]["file"]
+    # a wait ends once the rotation it waits for has ended
+    ends = {r[5]["file"]: r[3] + r[4] for r in rotates}
+    waits = by["worker.rotate_wait"]
+    assert len(waits) >= len(rotates) - 1
+    for wt in waits:
+        assert ends[wt[5]["file"]] <= wt[3] + wt[4] + EPS
     polls = by["worker.poll"]
     assert sum(s[5]["records"] for s in polls) >= 6000
     assert any(s[5].get("rows", 0) > 0 for s in by["worker.handoff"])
@@ -330,14 +344,18 @@ def test_cycle_probe_splits_a_traced_window():
     import cycle_probe
 
     spans, _ = _traced_run("pipelined")
-    worker = next(s[2] for s in spans if s[0] == "worker.rotate")
+    worker = next(s[2] for s in spans if s[0] == "worker.poll")
+    finisher = next(s[2] for s in spans if s[0] == "worker.rotate")
     mine = [(n, t, d, a) for n, _, tid, t, d, a in spans
-            if tid == worker or not n.startswith("worker.")]
+            if tid in (worker, finisher) or not n.startswith("worker.")]
     w0 = min(t for n, t, _, _ in mine if n == "worker.poll")
     w1 = max(t + d for n, t, d, _ in mine if n == "worker.rotate")
     split = cycle_probe.analyse(mine, w0, w1)
     assert split["files"] >= 3
+    assert split["layout"] == "finisher"
     assert 0 < split["cover_share"] <= 1 + EPS
+    assert 0 < split["finisher_share"] <= 1 + EPS
+    assert split["per_file_ms"]["worker.rotate_wait"] >= 0
     assert split["uncovered_s"] == pytest.approx(sum(split["gaps_s"].values()), abs=1e-3)
     per_file = split["per_file_ms"]
     assert per_file["worker.close"] + per_file["worker.publish"] + per_file["worker.ack"] \
@@ -351,3 +369,10 @@ def test_cycle_probe_splits_a_traced_window():
     # a writer that predates ``cpu_ms`` records spans without attributes
     bare = cycle_probe.analyse([(n, t, d, None) for n, t, d, _ in mine], w0, w1)
     assert bare["cover_share"] == split["cover_share"] and bare["rowgroups"] == 0
+    # a writer that predates the finisher rotates on the worker thread
+    serial = cycle_probe.analyse([s for s in mine if s[0] != "worker.rotate_wait"], w0, w1)
+    assert serial["layout"] == "serial" and serial["finisher_share"] is None
+    assert serial["per_file_ms"]["worker.rotate"] == split["per_file_ms"]["worker.rotate"]
+    # the sampler reads the writer's threads by group, the finisher apart
+    assert cycle_probe._group("KafkaProtoParquetWriter-tr-0-finisher") == "finisher"
+    assert cycle_probe._group("KafkaProtoParquetWriter-tr-0") == "worker"
